@@ -30,9 +30,6 @@ def main(argv=None):
     if args.quick:
         args.T = 5.0
 
-    # import the package FIRST: it pins the platform from FBTPU_PLATFORM
-    # (the bare backend query below would otherwise see the TPU plugin)
-    import fenicsx_beat_tpu  # noqa: F401
     import jax
 
     if jax.default_backend() == "cpu":

@@ -1,6 +1,6 @@
 """Minimal end-to-end demo: monodomain + modified FitzHugh-Nagumo.
 
-TPU-native translation of the reference's README getting-started example
+JAX translation of the reference's README getting-started example
 (reference README.md "Getting started"): a unit-square monodomain
 simulation with a corner stimulus driving a propagating wave.
 """

@@ -19,6 +19,7 @@ import argparse
 import importlib
 import inspect
 import os
+import re
 import sys
 from pathlib import Path
 
@@ -64,7 +65,6 @@ MODULES = [
     "fenicsx_beat_tpu.odefile",
     "fenicsx_beat_tpu.cache",
     "fenicsx_beat_tpu.ops.amg",
-    "fenicsx_beat_tpu.ops.pallas_ell",
     "fenicsx_beat_tpu.native",
 ]
 
@@ -97,9 +97,11 @@ def _summary(obj) -> str:
 
 def _signature(obj) -> str:
     try:
-        return str(inspect.signature(obj))
+        sig = str(inspect.signature(obj))
     except (ValueError, TypeError):
         return "(...)"
+    # module defaults (``xp=jnp``) render by name, not by install path
+    return re.sub(r"<module '([\w.]+)' from '[^']*'>", r"\1", sig)
 
 
 def _render_callable(name: str, obj, depth: int) -> list[str]:
@@ -158,7 +160,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--check", action="store_true", help="exit 1 if API.md is stale")
     args = ap.parse_args()
-    os.environ.setdefault("FBTPU_PLATFORM", "cpu")
+    os.environ.setdefault("JAX_PLATFORMS", "cpu")
     sys.path.insert(0, str(REPO))
     text = render()
     if args.check:

@@ -1,10 +1,12 @@
-"""fenicsx_beat_tpu — TPU-native monodomain cardiac electrophysiology.
+"""fenicsx_beat_tpu — cardiac electrophysiology (monodomain and bidomain)
+in JAX, run on NVIDIA GPUs.
 
-A from-scratch JAX/XLA/Pallas re-implementation of the capabilities of
-finsberg/fenicsx-beat, designed TPU-first: precompiled ELL operators,
-jitted theta-rule stepping with on-device CG, fused ``lax.scan`` time loops
-and ``shard_map`` spatial sharding replace the reference's
-UFL/FFCx/DOLFINx/PETSc/MPI stack.
+A from-scratch JAX/XLA re-implementation of the capabilities of
+finsberg/fenicsx-beat: precompiled sparse (stencil / ELL) operators,
+jitted theta-rule stepping with on-device CG, fused ``lax.scan`` time loops,
+a Pallas kernel for the ionic step and ``shard_map`` spatial sharding
+replace the reference's UFL/FFCx/DOLFINx/PETSc/MPI stack.  (The package
+name records the accelerator it was first written for.)
 
 Public surface mirrors the reference package
 (``src/beat/__init__.py:16-49``).
@@ -44,24 +46,6 @@ def _tune_numpy_page_faults():
 
 _tune_numpy_page_faults()
 
-
-def _pin_platform():
-    """Honor ``FBTPU_PLATFORM`` (e.g. ``cpu``) before any jax use.
-
-    The env var ``JAX_PLATFORMS`` alone is not reliable on hosts with an
-    out-of-tree TPU plugin (the plugin can still win backend selection);
-    ``jax.config.update("jax_platforms", ...)`` is.  ci.sh uses this to
-    run the demo smoke deterministically on CPU."""
-    import os
-
-    plat = os.environ.get("FBTPU_PLATFORM")
-    if plat:
-        import jax
-
-        jax.config.update("jax_platforms", plat)
-
-
-_pin_platform()
 
 from . import (  # noqa: E402
     base_model,

@@ -31,10 +31,8 @@ Typical use (see ``demos/conductivity_fit.py`` and
     loss = lambda p: jnp.mean((sim(p) - observed) ** 2)
     grads = jax.grad(loss)(params)  # reverse-mode through the PDE+ODE loop
 
-TPU-verified: f32 ``value_and_grad`` over 100 steps on a 32x32 sheet
-compiles and runs in 0.04 s/steady call on one v5e chip (gradient signs
-and CPU/f64 finite-difference agreement pinned in
-``tests/test_adjoint.py``).
+Gradient signs and CPU/f64 finite-difference agreement are pinned in
+``tests/test_adjoint.py``.
 """
 
 from __future__ import annotations
@@ -48,6 +46,10 @@ import numpy as np
 from . import fem
 from .ops.cg import cg
 from .stimulation import TimeWindow
+
+# f32 contractions run at full precision: the GPU may otherwise use TF32
+# (~3 significant digits), far coarser than the CG tolerances used here
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 __all__ = [
     "cg_implicit",
@@ -91,9 +93,10 @@ def cg_implicit(
     Both solves NORMALIZE the right-hand side by its Chebyshev norm and
     rescale the solution: CG's inner products SQUARE the operand scale,
     so an f32 adjoint seed of ~1e-22 (a ``2**-64`` cotangent scale on a
-    trace loss) gives ``||b||^2 ~ 1e-44`` — flushed to zero on TPU,
-    after which the solve "converges" instantly and returns an exactly
-    zero gradient (measured, ADJOINT_SCALE round 4).  The max-norm
+    trace loss) gives ``||b||^2 ~ 1e-44`` — below the f32 normal range,
+    flushed to zero by the accelerator's arithmetic, after which the
+    solve "converges" instantly and returns an exactly zero gradient.
+    The max-norm
     involves no squaring, and dividing equally-scaled values is exact in
     binary FP, so normalization preserves bitwise scale-equivariance
     while making the solve robust to ANY seed scale.  Consequence:
@@ -153,53 +156,7 @@ def cg_implicit(
     )
 
 
-def _lane_combo_factory(lane0, vals_stack, tail_stack, diag_stack):
-    """Differentiable weighted-combination SpMV on the paged lane-gather
-    format: ``mv(w, x) = (sum_i w_i K_i) @ x`` where the ``K_i`` share one
-    page layout (``LaneGatherMatrix.from_operator_group``) so the combine
-    is value-level.  The pallas kernel is opaque to autodiff; the custom
-    VJP uses each component's SYMMETRY: ``dx = K(w) @ ybar`` is the same
-    kernel, and ``dw_i = ybar . (K_i @ x)`` is one extra kernel call per
-    component.  ``custom_linear_solve`` differentiates its matvec once
-    per solve (not per CG iteration), so the extra calls are per-step,
-    not per-iteration.  ``diag(w)`` comes free from the packed per-
-    component diagonals."""
-    from dataclasses import replace
-
-    nc = vals_stack.shape[0]
-    has_tail = tail_stack is not None
-
-    def _with(w):
-        v = jnp.tensordot(w, vals_stack, axes=1)
-        tv = jnp.tensordot(w, tail_stack, axes=1) if has_tail else None
-        return replace(lane0, vals=v, tail_vals=tv, diag=None)
-
-    def _apply(w, x):
-        return _with(w) @ x
-
-    @jax.custom_vjp
-    def mv(w, x):
-        return _apply(w, x)
-
-    def fwd(w, x):
-        return _apply(w, x), (w, x)
-
-    def bwd(res, yb):
-        w, x = res
-        dx = _apply(w, yb)
-        one = jnp.eye(nc, dtype=vals_stack.dtype)
-        dw = jnp.stack([jnp.vdot(yb, _apply(one[i], x)) for i in range(nc)])
-        return dw.astype(w.dtype), dx
-
-    mv.defvjp(fwd, bwd)
-
-    def diag(w):
-        return jnp.tensordot(w, diag_stack, axes=1)
-
-    return mv, diag
-
-
-def _stack_components(V, specs, dtype, mass=None, ops_out: list | None = None):
+def _stack_components(V, specs, dtype, mass=None):
     """Assemble conductivity ``specs`` into one shared-pattern value stack.
 
     Returns ``(mass, kvals_stack, ktail_stack)``: the (first) mass
@@ -207,15 +164,11 @@ def _stack_components(V, specs, dtype, mass=None, ops_out: list | None = None):
     streams ``[n_specs, ...vals]``, and the stacked hybrid apex-tail
     values (unstructured LV meshes) or ``None``.  Pass ``mass`` to pin a
     pattern assembled earlier (the bidomain's intra/extra stacks must
-    share one pattern so value-level combination stays valid).
-    ``ops_out`` (a list) additionally receives each component's operator
-    object (the lane-gather repack needs them)."""
+    share one pattern so value-level combination stays valid)."""
     kvals_list = []
     ktail_list = []
     for spec in specs:
         m_i, k_i = fem.assemble_mass_stiffness_auto(V, spec)
-        if ops_out is not None:
-            ops_out.append(k_i)
         if mass is None:
             mass = m_i
         kvals_list.append(jnp.asarray(k_i.vals, dtype=dtype))
@@ -313,7 +266,11 @@ def _stimulus_setup(V, I_s, quadrature_degree, dtype, n):
         # window end, matching TimeWindow.indicator and the fused
         # solver (stimulation.py:104, fused.py:485)
         on = ((t >= win_start) & (t <= win_start + win_dur)).astype(dtype)
-        b = scale * ((amps[win_slot_arr] * on) @ stim_mat) if have_windows else 0.0
+        b = (
+            scale * jnp.matmul(amps[win_slot_arr] * on, stim_mat, precision=_HIGHEST)
+            if have_windows
+            else 0.0
+        )
         # general expressions (RandomActivation, facet patterns,
         # arbitrary callables): in-trace quadrature assembly
         for j, quad in enumerate(gen_quads):
@@ -379,7 +336,6 @@ def build_diff_simulator(
     cg_maxiter: int = 1000,
     dtype=jnp.float64,
     checkpoint_segments: int | None = None,
-    use_lane_ops: bool | None = None,
 ) -> Callable[[dict], jnp.ndarray]:
     """Build ``simulate(params) -> probe voltages [n_steps, n_probes]``.
 
@@ -431,61 +387,10 @@ def build_diff_simulator(
     n = V.ndofs
 
     specs = stiffness_components if stiffness_components is not None else [1.0]
-    k_ops: list = []
-    mass, kvals_stack, ktail_stack = _stack_components(
-        V, specs, dtype, ops_out=k_ops
-    )
+    mass, kvals_stack, ktail_stack = _stack_components(V, specs, dtype)
     has_tail = ktail_stack is not None
     mvals = jnp.asarray(mass.vals, dtype=dtype)
     mtail = jnp.asarray(mass.tail_vals, dtype=dtype) if has_tail else None
-
-    # TPU-unstructured fast path: the XLA gather behind the plain ELL
-    # SpMV measures ~1 GB/s effective on the chip (docs/DESIGN.md §3),
-    # which made unstructured differentiation production-infeasible (a
-    # 79k-node LV fit iteration would be SpMV-bound at ~15 min).  Pack
-    # mass + stiffness components into ONE shared paged lane-gather
-    # layout and ride the pallas kernel through a symmetry-based custom
-    # VJP (_lane_combo_factory).
-    combo_mv = combo_diag = None
-    if use_lane_ops is None:
-        use_lane_ops = (
-            jax.default_backend() == "tpu"
-            and not hasattr(mass, "offsets")  # ELL: unstructured mesh
-            and n >= 4096
-        )
-    if use_lane_ops and hasattr(mass, "offsets"):
-        raise ValueError("use_lane_ops requires an unstructured (ELL) mesh")
-    if use_lane_ops:
-        try:
-            from .ops.pallas_ell import LaneGatherMatrix
-
-            lanes = LaneGatherMatrix.from_operator_group(
-                (mass, *k_ops), dtype=dtype
-            )
-            lane0 = lanes[0].to_device()
-            vstack = jnp.stack(
-                [jnp.asarray(L.vals, dtype=dtype) for L in lanes]
-            )
-            tstack = (
-                jnp.stack(
-                    [jnp.asarray(L.tail_vals, dtype=dtype) for L in lanes]
-                )
-                if lanes[0].tail_vals is not None
-                else None
-            )
-            dstack = jnp.stack(
-                [jnp.asarray(L.diag, dtype=dtype) for L in lanes]
-            )
-            combo_mv, combo_diag = _lane_combo_factory(
-                lane0, vstack, tstack, dstack
-            )
-        except Exception as exc:  # pragma: no cover - backend-specific
-            logger = __import__("logging").getLogger(__name__)
-            logger.warning(
-                "lane-gather diff path unavailable (%s); using the XLA "
-                "ELL matvec", exc,
-            )
-            combo_mv = combo_diag = None
 
     default_amps, n_slots, b_stim_tables = _stimulus_setup(
         V, I_s, quadrature_degree, dtype, n
@@ -518,8 +423,12 @@ def build_diff_simulator(
 
     def _operator_vals(g):
         g = jnp.atleast_1d(jnp.asarray(g, dtype=dtype))
-        kv = jnp.tensordot(g, kvals_stack, axes=1)
-        kt = jnp.tensordot(g, ktail_stack, axes=1) if has_tail else None
+        kv = jnp.tensordot(g, kvals_stack, axes=1, precision=_HIGHEST)
+        kt = (
+            jnp.tensordot(g, ktail_stack, axes=1, precision=_HIGHEST)
+            if has_tail
+            else None
+        )
         return mvals, kv, kt
 
     def _with_values(vals, tail_vals):
@@ -541,34 +450,19 @@ def build_diff_simulator(
         )
         # a scalar amplitude applies to every stimulus slot
         amps = jnp.broadcast_to(amps, (n_slots,))
-        if combo_mv is not None:
-            gvec = jnp.atleast_1d(jnp.asarray(g, dtype=dtype))
-            e_m = jnp.zeros((1 + gvec.shape[0],), dtype).at[0].set(1.0)
-            w_k = jnp.concatenate([jnp.zeros((1,), dtype), gvec])
-            w_a = jnp.concatenate(
-                [jnp.full((1,), chi * C_m, dtype), th * dt_f * gvec]
-            )
-            Amv = lambda u: combo_mv(w_a, u)  # noqa: E731
-            Mmv = lambda u: combo_mv(e_m, u)  # noqa: E731
-            Kmv = lambda u: combo_mv(w_k, u)  # noqa: E731
-            diagA = jax.lax.stop_gradient(combo_diag(w_a))
-            diagM = (
-                jax.lax.stop_gradient(combo_diag(e_m))
-                if W_e is not None else None
-            )
-        else:
-            mv, kv, kt = _operator_vals(g)
-            A = _with_values(
-                chi * C_m * mv + th * dt_f * kv,
-                chi * C_m * mtail + th * dt_f * kt if has_tail else None,
-            )
-            Mop = _with_values(mv, mtail)
-            Kop = _with_values(kv, kt)
-            Amv = lambda u: A @ u  # noqa: E731
-            Mmv = lambda u: Mop @ u  # noqa: E731
-            Kmv = lambda u: Kop @ u  # noqa: E731
-            diagA = A.diagonal()
-            diagM = Mop.diagonal() if W_e is not None else None
+        mv, kv, kt = _operator_vals(g)
+        A = _with_values(
+            chi * C_m * mv + th * dt_f * kv,
+            chi * C_m * mtail + th * dt_f * kt if has_tail else None,
+        )
+        Mop = _with_values(mv, mtail)
+        Kop = _with_values(kv, kt)
+        Amv = lambda u: A @ u  # noqa: E731
+        Mmv = lambda u: Mop @ u  # noqa: E731
+        Kmv = lambda u: Kop @ u  # noqa: E731
+        diagA = A.diagonal()
+        diagM = Mop.diagonal() if W_e is not None else None
+
 
         def b_stim(t):
             return b_stim_tables(t, amps, chi)
@@ -618,7 +512,7 @@ def build_diff_simulator(
                 atol_scaled=cg_atol,
                 maxiter=cg_maxiter,
             ) * (-1.0 / C_m)
-            return states, (probe_v, W_e @ im)
+            return states, (probe_v, jnp.matmul(W_e, im, precision=_HIGHEST))
 
         init = states0 if states0_in is None else states0_in
         ts = t0 + jnp.arange(n_steps, dtype=dtype) * dt_f
@@ -739,8 +633,12 @@ def build_diff_bidomain_simulator(
 
     def _combine(g, stack, tail_stack):
         g = jnp.atleast_1d(jnp.asarray(g, dtype=dtype))
-        kv = jnp.tensordot(g, stack, axes=1)
-        kt = jnp.tensordot(g, tail_stack, axes=1) if has_tail else None
+        kv = jnp.tensordot(g, stack, axes=1, precision=_HIGHEST)
+        kt = (
+            jnp.tensordot(g, tail_stack, axes=1, precision=_HIGHEST)
+            if has_tail
+            else None
+        )
         return kv, kt
 
     def _with_values(vals, tail_vals):
@@ -857,9 +755,8 @@ def host_segmented_value_and_grad(
 
     Why this exists: a full clinical beat (20k steps) as ONE
     ``value_and_grad`` dispatch is a single device program running for
-    minutes — measured to die with ``TPU device error`` on this backend
-    for both FHN and TP06 at dx=0.1 (ADJOINT_SCALE.json round 4), and on
-    any backend it forfeits progress monitoring.  Here the treeverse
+    minutes, which forfeits progress monitoring and bounds nothing if
+    the device program fails part-way.  Here the treeverse
     recursion's OUTER level runs on host: the forward pass stores the K
     segment-boundary states (device-resident, ``K * state_bytes`` HBM);
     the backward pass re-runs each segment under ``value_and_grad`` of
@@ -880,8 +777,8 @@ def host_segmented_value_and_grad(
     every window boundary, so a segment's loss backpropagates through at
     most ``truncate_every`` segments of dynamics.  This is the standard
     remedy for chaotic gradient blow-up over long cardiac horizons (the
-    exact full-beat TP06 adjoint is finite at 400 steps but NaNs at 20k,
-    ``ADJOINT_SCALE.json``): the returned gradient is EXACT for the
+    exact full-beat TP06 adjoint can be finite over a few hundred steps
+    and overflow over a full beat): the returned gradient is EXACT for the
     windowed objective in which each window starts from a
     ``stop_gradient`` boundary state (equality-gated in
     ``tests/test_adjoint.py``), which is what clinical windowed fits
@@ -893,9 +790,8 @@ def host_segmented_value_and_grad(
     is rescaled by ``carry_clip / max|d_state|`` (Chebyshev norm: no
     squaring, so the test itself cannot overflow in f32).  Clipped BPTT
     is the standard stabilizer when even one truncation window overflows
-    f32: the measured TP06 plateau sensitivity grows ~1e9 per 10 ms
-    segment (ADJOINT_SCALE.json window rows), so any window over a few
-    segments overflows; clipping bounds the carry entering every
+    f32: the TP06 plateau sensitivity grows by many decades per 10 ms
+    segment, so a window over a few segments can overflow; clipping bounds the carry entering every
     backward segment while preserving its direction.  The result is a
     descent-direction surrogate (biased where clipping engages, exact
     where it does not — gated both ways in ``tests/test_adjoint.py``).
@@ -904,13 +800,12 @@ def host_segmented_value_and_grad(
     segment.  Composes with ``truncate_every``.
 
     ``window_outlier``: trimmed aggregation across truncation windows.
-    The stiff TP06 gating makes the VJP through a window grow ~1e9 per
-    10 ms of PLATEAU dynamics, so on long horizons a single window's
-    gradient can reach 1e2-1e3 while every other window sits at the
-    physical 1e-4 scale — one chaotic window then dominates the sum and
-    corrupts its DIRECTION (measured: cosine vs the finite-difference
-    gradient of the true objective collapses from >0.95 to 0.02 at
-    dx=0.5/T=100 ms; /tmp win_diag, FIT_SCALE.json fdcheck rows).  With
+    The stiff TP06 gating makes the VJP through a window grow by many
+    decades per 10 ms of PLATEAU dynamics, so on long horizons a single
+    window's gradient can dwarf every other window's physical scale —
+    one chaotic window then dominates the sum and corrupts its DIRECTION
+    (its cosine with the finite-difference gradient of the true
+    objective collapses; ``benchmarks.fit_scale fdcheck`` measures it).  With
     ``window_outlier=tau``, per-window gradients whose Chebyshev norm
     exceeds ``tau * median(window norms)`` are DROPPED from the sum —
     the returned gradient is the exact windowed gradient of the
@@ -931,9 +826,8 @@ def host_segmented_value_and_grad(
     mixed-precision loss scaling.  The VJP is LINEAR in its seed, so for
     a power-of-two scale the result is bit-identical mathematics that
     shifts every intermediate cotangent by a constant factor: the f32
-    TP06 plateau adjoint overflows INSIDE a single 10 ms segment even
-    with a zero incoming carry (measured: 2/100 segments NaN,
-    ``ADJOINT_SCALE.json``), and a scale like ``2**-64 ~ 5.4e-20`` moves
+    TP06 plateau adjoint can overflow INSIDE a single 10 ms segment even
+    with a zero incoming carry, and a scale like ``2**-64 ~ 5.4e-20`` moves
     that whole backward pass out of overflow range while components
     within ~19 decades of the largest stay representable (f32 only
     resolves 7 anyway).  Equality-gated bitwise on a power-of-two scale
@@ -961,7 +855,7 @@ def host_segmented_value_and_grad(
         )
         # Zero non-finite entries explicitly: IEEE Inf*0 = NaN, so a bare
         # ``leaf * scale`` would propagate the overflow this reset exists
-        # to contain (ADVICE r4).  Finite entries are untouched by the
+        # to contain.  Finite entries are untouched by the
         # where (scale handles them); Inf/NaN entries become exactly 0.
         return jax.tree_util.tree_map(
             lambda leaf: jnp.where(jnp.isfinite(leaf), leaf, 0.0) * scale, d

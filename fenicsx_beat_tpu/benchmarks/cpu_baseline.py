@@ -9,7 +9,7 @@ STRONG stand-in on the same machine class (documented in BASELINE.md):
 * theta-rule step: RHS = B @ v + dt * stim (CSR matvec), then the linear
   solve with the better of (a) factorize-once SuperLU (the reference's
   "direct" profile, ``base_model.py:140-157``) and (b) Jacobi-CG at the
-  same tolerances the TPU solver uses;
+  same tolerances the fused solver uses;
 * ionic step: the in-repo TP06 generalized Rush-Larsen jitted with
   XLA-CPU — at least as fast as the reference's vectorized NumPy/gotranx
   path, so the computed speedup is conservative.

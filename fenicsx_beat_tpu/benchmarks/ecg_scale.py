@@ -1,17 +1,17 @@
-"""Production-scale ECG recovery timing (VERDICT r02 item 5).
+"""Production-scale ECG recovery timing.
 
 Builds :class:`~fenicsx_beat_tpu.ecg.ECGRecovery` on the Niederer slab at
 a production resolution (default dx=0.05, 3.45M nodes / 20.6M cells),
 registers a 12-lead electrode set (10 electrodes), and times the
 per-frame cost of the full recovery path: warm-started mass solve for Im
-(pallas stencil SpMV, HBM-streamed) plus the device-side electrode
+(XLA stencil SpMV) plus the device-side electrode
 matvec.  Only ``n_electrodes`` scalars cross the host link per frame.
 
 The reference's equivalent re-assembles a dolfinx form over the full mesh
 per electrode per frame under MPI (``ecg.py:229-298`` there).
 
-Artifact: ``python -m fenicsx_beat_tpu.benchmarks.ecg_scale [dx]`` writes
-``ECG_SCALE.json``.
+``python -m fenicsx_beat_tpu.benchmarks.ecg_scale [dx]`` writes
+``results/ecg_scale.json``.
 """
 
 from __future__ import annotations
@@ -97,7 +97,6 @@ def run_ecg_scale(dx: float = 0.05, n_frames: int = 10) -> dict:
         "frames_total_s": round(total_s, 2),
         "best_frame_s": round(best_frame, 3),
         "cg_iters_per_frame": iters,
-        "use_pallas": bool(ecg._use_pallas),
         "lead_I_sample": float(np.asarray(leads.I)),
     }
 
@@ -106,7 +105,9 @@ def main() -> int:
     dx = float(sys.argv[1]) if len(sys.argv) > 1 else 0.05
     frames = int(sys.argv[2]) if len(sys.argv) > 2 else 10
     out = run_ecg_scale(dx=dx, n_frames=frames)
-    Path("ECG_SCALE.json").write_text(json.dumps(out, indent=2) + "\n")
+    path = Path("results/ecg_scale.json")
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(out, indent=2) + "\n")
     print(json.dumps(out))
     return 0
 

@@ -1,7 +1,7 @@
 """Production-scale inverse problem: recover anisotropic conductivities
 from synthetic probe traces by gradient descent through the solver.
 
-This is the artifact VERDICT r4 #2 asks for: the repo's clinical pitch
+This exercises the repo's clinical pitch
 (``demos/conductivity_fit.py``) exercised where it claims to work — a
 full-beat TP06 horizon at production resolution, with the windowed-BPTT
 host-segmented adjoint (``adjoint.host_segmented_value_and_grad``)
@@ -14,10 +14,10 @@ actually *driving a fit*:
   two components built from the rule-based fiber field.
 * ``fdcheck``: mid-scale validation that the WINDOWED gradient points
   the way of the TRUE objective: cosine(windowed grad, central-FD grad
-  of the total loss) per VERDICT r4 #2.
+  of the total loss).
 
 Objective normalization: the raw full-beat TP06 adjoint produces
-gradients at 1e17-1e31 (ADJOINT_SCALE.json) — unusable raw.  Here the
+gradients many decades from O(1) — unusable raw.  Here the
 loss is ``mean((v - v_target)^2) / (100 mV)^2`` per segment (O(1)
 numbers), parameters are OPTIMIZED IN LOG SPACE (conduction physics is
 multiplicative; log-grads are ``g * dL/dg``, scale-free), and Adam's
@@ -32,7 +32,7 @@ Run:
     python -m fenicsx_beat_tpu.benchmarks.fit_scale slab --dx 0.2
     python -m fenicsx_beat_tpu.benchmarks.fit_scale lv --psize 0.15
     python -m fenicsx_beat_tpu.benchmarks.fit_scale fdcheck --dx 0.5
-Each prints one JSON row (append to FIT_SCALE.json via --out).
+Each prints one JSON row (append to a file via --out).
 """
 
 from __future__ import annotations
@@ -220,10 +220,8 @@ def run_fit(
 
     theta = jnp.log(g_true_j * jnp.asarray(np.asarray(g0_scale), dtype))
     # hold lr for the approach, then decay to 0.2x: a fixed lr=0.15
-    # overshoots once the loss basin is reached (measured: slab dx=0.2
-    # hit 3%/23% rel err at iter 9, then bounced to 18%/31% by 11),
-    # while an immediate 0.1x exponential decay starves the approach
-    # (g_l stalled at 45% err — both runs in FIT_SCALE history)
+    # overshoots once the loss basin is reached, while an immediate 0.1x
+    # exponential decay starves the approach
     hold = max(n_iters // 2, 1)
     opt = optax.adam(
         optax.join_schedules(
@@ -342,7 +340,7 @@ def run_fdcheck(
     window_outlier: float | None = 20.0,
 ) -> dict:
     """Windowed-gradient DIRECTION vs central finite differences of the
-    TRUE total loss, at a mid scale (VERDICT r4 #2).  The windowed
+    TRUE total loss, at a mid scale.  The windowed
     gradient is exact for a different (windowed) objective; what the fit
     needs is that it descends the true one — pinned here as a positive
     cosine against the FD gradient."""

@@ -2,10 +2,9 @@
 
 The reference stack amortizes setup through long-lived library caches
 (FFCx JIT kernels, PETSc/hypre reuse within a process); here the
-analogous costs are one-shot host computations on a 1-vCPU machine:
-smoothed-aggregation hierarchy builds (28-745 s at 79k-2M nodes),
-unstructured mesh generation (72.8 s for the 10.6M-cell LV), and
-lane-gather page packing.  This module gives them all one npz-backed,
+analogous costs are one-shot host computations: smoothed-aggregation
+hierarchy builds and unstructured mesh generation.  This module gives
+them all one npz-backed,
 content-addressed, atomically-published cache (the pattern
 ``fem._operator_cache_*`` established for assembled operators).
 

@@ -1,10 +1,11 @@
 """Command-line interface.
 
-TPU-native counterpart of reference ``src/beat/cli.py``: argparse with
+JAX counterpart of reference ``src/beat/cli.py``: argparse with
 ``version`` / ``run`` / ``ecg`` / ``post`` subcommands.  Unlike the
 reference (where run/ecg/post are NotImplemented stubs,
 ``cli.py:124-129``), ``run`` executes a monodomain slab simulation via the
-fused TPU solver, and ``version`` reports the JAX device inventory.
+fused solver, and ``version`` reports the JAX device inventory.  The CLI
+keeps JAX's persistent compile cache where :mod:`.device` says.
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ def setup_logging(level: int = logging.INFO) -> None:
 
 def setup_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
-        prog="beat-tpu", description="TPU-native cardiac electrophysiology solver"
+        prog="beat-tpu", description="Cardiac electrophysiology solver (JAX, NVIDIA GPU)"
     )
     parser.add_argument("--verbose", "-v", action="store_true")
     sub = parser.add_subparsers(dest="command")
@@ -282,8 +283,11 @@ def dispatch(args: argparse.Namespace) -> int:
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
+    from .device import enable_compile_cache
+
     parser = setup_parser()
     args = parser.parse_args(argv)
+    enable_compile_cache()
     return dispatch(args)
 
 

@@ -1,6 +1,6 @@
 """Conductivity presets and anisotropic tensors.
 
-TPU-native counterpart of reference ``src/beat/conductivities.py``.  The
+JAX counterpart of reference ``src/beat/conductivities.py``.  The
 reference represents the tensor symbolically via UFL
 (``conductivities.py:101-104``); here :class:`ConductivityTensor` carries
 the data (s_l, s_t, fiber field) and materializes per-cell ``[nc, g, g]``

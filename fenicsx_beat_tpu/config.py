@@ -1,9 +1,10 @@
 """Global precision / device configuration.
 
-The reference runs all FEM in PETSc double precision.  On TPU the MXU/VPU
-native dtype is float32 (f64 is unsupported), so the framework is dtype-
-parametric: float64 when JAX x64 is enabled (CPU validation, matches the
-reference's accuracy gates), float32 otherwise (TPU production path).
+The reference runs all FEM in PETSc double precision.  The framework is
+dtype-parametric: float64 when JAX x64 is enabled (CPU validation, matches
+the reference's accuracy gates; the H100 also runs float64, at a fraction
+of its float32 rate), float32 otherwise (the GPU production path, half the
+bytes per node).
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Slab geometries with fiber microstructure.
 
-TPU-native counterpart of reference ``src/beat/geometry.py``: structured
+JAX counterpart of reference ``src/beat/geometry.py``: structured
 2D/3D slab meshes with resolution ``dx`` and constant fiber/sheet/normal
 fields.  The ``comm`` argument is accepted for signature parity but unused —
 distribution happens through ``jax.sharding`` over dof arrays, not mesh

@@ -1,6 +1,6 @@
 """Checkpointing and visualization output.
 
-TPU-native replacement for the reference's external IO stack
+JAX replacement for the reference's external IO stack
 (ADIOS2 ``.bp`` via dolfinx.io / io4dolfinx, used in its demos e.g.
 ``demos/pace_train.py:179-189,222-249``):
 

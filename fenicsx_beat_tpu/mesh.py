@@ -1,6 +1,6 @@
 """Host-side simplex mesh layer.
 
-TPU-native replacement for the mesh functionality the reference obtains from
+JAX replacement for the mesh functionality the reference obtains from
 DOLFINx C++ (``dolfinx.mesh`` — see reference ``src/beat/geometry.py:78-139``
 and mesh usage throughout).  A mesh here is a pair of plain numpy arrays
 (vertex coordinates + cell connectivity) with lazily-computed topology

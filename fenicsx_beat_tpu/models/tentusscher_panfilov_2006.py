@@ -8,10 +8,10 @@ gotranx-generated code the reference compiles at demo runtime
 ``init_state_values`` / ``init_parameter_values`` / ``state_index`` /
 ``parameter_index`` / ``generalized_rush_larsen`` / ``forward_euler``.
 
-TPU-first formulation: the stepper is a pure jnp function over a
-``(19, n_points)`` state array — a single fused VPU expression per step
+Accelerator-first formulation: the stepper is a pure jnp function over a
+``(19, n_points)`` state array — one elementwise expression per step
 (no per-cell loops), safe under ``jit``/``vmap``/``lax.scan`` and
-dtype-polymorphic (f64 CPU validation, f32 TPU production).  The 12 gate
+dtype-polymorphic (f64 CPU validation, f32 production).  The 12 gate
 variables use the exact Rush-Larsen exponential update; the singular
 L-type Ca driving-force term uses an ``expm1``-guarded form, and ``celltype``
 (0=endo, 1=epi, 2=mid) switches the published transmural parameter sets.
@@ -282,7 +282,7 @@ def _v_current_factors(V, p, xp=jnp):
     VFRT = V / RTF
 
     # L-type Ca driving force (expm1-guarded singular term at V = 15 mV);
-    # exp(x)-1 instead of expm1 (no Pallas TPU lowering) — the small-|x|
+    # exp(x)-1 instead of expm1 (plain exp lowers in every kernel route) — the small-|x|
     # branch uses the series, so cancellation near 0 is irrelevant
     x = 2 * (V - 15) * (1.0 / RTF)
     ex = exp(x)
@@ -451,7 +451,7 @@ def _currents_and_gates(states, t, p, xp=jnp):
     """All ionic currents, gate (x_inf, tau) pairs and concentration fluxes
     (exact transcendental evaluation — the solve path).  ``xp`` follows
     the module convention; passing :data:`~..ops.fastmath.FASTEXP_XP`
-    swaps every ``exp`` for the bit-trick VPU variant."""
+    swaps every ``exp`` for the bit-trick variant."""
     V = states[0]
     Ca_ss = states[16]
     gates = dict(_gate_rates(V, p, xp=xp))
@@ -487,8 +487,9 @@ def generalized_rush_larsen(states, t, parameters, dt, xp=jnp, **kwargs):
     update for the 12 Hodgkin-Huxley gates and the linear R_prime ODE,
     explicit update for V and the concentrations.  ``xp=FASTEXP_XP``
     (:mod:`..ops.fastmath`) swaps the ~58 exp/node for the bit-trick
-    VPU variant — measured by benchmarks/ionic_bf16.py."""
-    states = jnp.asarray(states)
+    variant; ``xp=numpy`` evaluates the step in plain NumPy (the float64
+    host reference of the on-device step)."""
+    states = xp.asarray(states)
     p = _unpack_params(parameters)
     gates, nongates, (rp_inf, rp_rate) = _currents_and_gates(
         states, t, p, xp=xp
@@ -503,44 +504,17 @@ def generalized_rush_larsen(states, t, parameters, dt, xp=jnp, **kwargs):
             out.append(rp_inf + (x - rp_inf) * xp.exp(-dt * rp_rate))
         else:
             out.append(x + dt * nongates[name])
-    return jnp.stack(out)
+    return xp.stack(out)
 
 
 _GATE_ORDER = ["Xr1", "Xr2", "Xs", "m", "h", "j", "d", "f", "f2", "s", "r"]
-_LANE = 128
+_N_FCASS = 128  # table size for the fCass relaxation factor in y in [0, 1]
 
 
-def _interp_tables(pair2d, i0, frac, lane):
-    """Piecewise-linear table read: ``base[i0] + frac * delta[i0]``.
-
-    ``pair2d`` is ``(base, delta)`` as ``(nseg, 128)`` arrays (slices of the
-    packed table operand).  On the Pallas TPU path (``lane=True``, operands
-    shaped ``(rows, 128)``) each 128-entry segment becomes one broadcast
-    vreg row gathered along lanes (``tpu.dynamic_gather`` via
-    ``take_along_axis``); segments combine with selects on ``i0 >> 7``.
-    Elsewhere a plain ``jnp.take`` gather is used."""
-    base, delta = pair2d
-    if not lane:
-        b = jnp.take(base.reshape(-1), i0)
-        d = jnp.take(delta.reshape(-1), i0)
-        return b + frac * d
-
-    nseg = base.shape[0]
-    loc = jnp.bitwise_and(i0, _LANE - 1)
-
-    def seg_read(tab2d):
-        vals = []
-        for s in range(nseg):
-            tab = jnp.broadcast_to(tab2d[s].reshape(1, _LANE), loc.shape)
-            vals.append(jnp.take_along_axis(tab, loc, axis=1))
-        out = vals[0]
-        if nseg > 1:
-            seg = jnp.right_shift(i0, 7)
-            for s in range(1, nseg):
-                out = jnp.where(seg >= s, vals[s], out)
-        return out
-
-    return seg_read(base) + frac * seg_read(delta)
+def _interp_tables(pair, i0, frac):
+    """Piecewise-linear table read: ``base[i0] + frac * delta[i0]``."""
+    base, delta = pair
+    return jnp.take(base, i0) + frac * jnp.take(delta, i0)
 
 
 def _as_pair(fine_vals):
@@ -567,20 +541,14 @@ def tabulated_rush_larsen(
     (x_inf, tau) pairs of the 11 voltage gates, the CaL driving-force pair,
     the NaK/NaCa exponentials, the p_K rectification, and the K1 open
     fraction in u = V - E_K — is sampled once on a host grid and replaced by
-    piecewise-linear table reads.  On the Pallas TPU path the reads lower to
-    lane-wise ``tpu.dynamic_gather``, cutting the exp census of a step from
-    ~58 to 1 (the R_prime rate, which depends on Ca_SR*Ca_ss).  fCass, a
-    function of Ca_ss, keeps its exact algebraic x_inf and reads
+    piecewise-linear table reads (gathers), cutting the exp census of a
+    step from ~58 to 1 (the R_prime rate, which depends on Ca_SR*Ca_ss).
+    fCass, a function of Ca_ss, keeps its exact algebraic x_inf and reads
     exp(-dt/tau) from a table in y = 1/(1+(Ca_ss/0.05)^2).
 
-    **Measured TPU outcome (docs/DESIGN.md §8): a negative result.**  The
-    v5e VPU evaluates a vector exp in ~8 cycles, so the ~30 interpolated
-    reads (2 segment gathers + select + FMA each, for base and delta)
-    cost MORE than the exps they replace: 242 us vs 129 us per step at
-    442k nodes.  The production solvers therefore default to the exact
-    :func:`generalized_rush_larsen`; this variant stays as the documented
-    measurement, a build-time-audited accuracy baseline, and an option
-    for backends with expensive transcendentals.
+    The production solvers use the exact :func:`generalized_rush_larsen`;
+    this variant is off the main path: a build-time-audited accuracy
+    baseline and an option where transcendentals are expensive.
 
     Accuracy: tables are sampled in float64 and interpolated linearly; with
     the default 256 entries over 167 mV the worst-case gate-coefficient
@@ -594,8 +562,6 @@ def tabulated_rush_larsen(
     (both are baked); ``fun.fixed_dt`` carries the baked step so solvers can
     validate.  Use one instance per distinct ionic sub-step (theta*dt).
     """
-    if n_entries % _LANE:
-        raise ValueError(f"n_entries must be a multiple of {_LANE}, got {n_entries}")
     dt = float(dt)
     params = init_parameter_values() if parameters is None else np.asarray(parameters, np.float64)
     p = {name: float(params[i]) for i, (name, _) in enumerate(_PARAM_DEFAULTS)}
@@ -604,7 +570,7 @@ def tabulated_rush_larsen(
     u0, u1 = map(float, u_range)
     vg = np.linspace(v0, v1, n_entries)
     ug = np.linspace(u0, u1, n_entries)
-    yg = np.linspace(0.0, 1.0, _LANE)
+    yg = np.linspace(0.0, 1.0, _N_FCASS)
 
     gate_rates = _gate_rates(vg, p, xp=np)
     gate_tabs = {}
@@ -637,28 +603,17 @@ def tabulated_rush_larsen(
         scale = max(1.0, float(np.max(np.abs(fine_fac[k]))))
         table_error[k] = float(np.max(np.abs(_lin(fac_tabs[k][0]) - fine_fac[k]))) / scale
 
-    # pack every table into ONE (rows, 128) tensor: Pallas kernels reject
-    # captured array constants, so the packed tensor rides in as a single
-    # VMEM operand (see build_pallas_ode_step) and each table reads as a
-    # static row slice of it
-    layout = {}
-    rows = []
-
-    def _push(name, pair):
-        base, delta = pair
-        nseg = base.shape[0] // _LANE
-        layout[name] = (len(rows), nseg)
-        rows.extend(np.asarray(base, dtype=np.float64).reshape(nseg, _LANE))
-        rows.extend(np.asarray(delta, dtype=np.float64).reshape(nseg, _LANE))
-
+    tables = {}
     for name in _GATE_ORDER:
-        _push("A_" + name, gate_tabs[name][0])
-        _push("B_" + name, gate_tabs[name][1])
-    for k, v in fac_tabs.items():
-        _push(k, v)
-    _push("K1", k1_tab)
-    _push("Bfc", Bfc_tab)
-    packed = np.stack(rows).astype(dtype)
+        tables["A_" + name] = gate_tabs[name][0]
+        tables["B_" + name] = gate_tabs[name][1]
+    tables.update(fac_tabs)
+    tables["K1"] = k1_tab
+    tables["Bfc"] = Bfc_tab
+    tables = {
+        k: tuple(np.asarray(a, dtype=np.float64).astype(dtype) for a in pair)
+        for k, pair in tables.items()
+    }
 
     inv_dv = (n_entries - 1) / (v1 - v0)
     inv_du = (n_entries - 1) / (u1 - u0)
@@ -671,43 +626,37 @@ def tabulated_rush_larsen(
 
     gate_names = set(_GATE_ORDER)
 
-    def fun(states, t=0.0, parameters=None, dt=None, tables=None, **kwargs):
+    def fun(states, t=0.0, parameters=None, dt=None, **kwargs):
         del parameters, dt  # baked at build time
-        if tables is None:
-            # XLA path: the packed tensor becomes a (small) module constant.
-            # Inside a Pallas kernel the builder MUST pass it as an operand.
-            tables = jnp.asarray(packed)
 
         def pair(name):
-            start, nseg = layout[name]
-            return tables[start : start + nseg], tables[start + nseg : start + 2 * nseg]
+            return tuple(jnp.asarray(a) for a in tables[name])
 
         V = states[0]
         Ca_ss = states[16]
-        lane = V.ndim == 2 and V.shape[-1] == _LANE
 
         iv, fv = _index(V, v0, inv_dv, n_entries)
-        fac = {k: _interp_tables(pair(k), iv, fv, lane) for k in fac_tabs}
+        fac = {k: _interp_tables(pair(k), iv, fv) for k in fac_tabs}
 
         def k1_of_u(u):
             iu, fu = _index(u, u0, inv_du, n_entries)
-            return _interp_tables(pair("K1"), iu, fu, lane)
+            return _interp_tables(pair("K1"), iu, fu)
 
         nongates, (rp_inf, rp_rate) = _currents_and_derivs(
             states, t, p, fac, k1_of_u, xp=jnp
         )
 
         y = 1 / (1 + (Ca_ss / 0.05) ** 2)
-        iy, fy = _index(y, 0.0, float(_LANE - 1), _LANE)
+        iy, fy = _index(y, 0.0, float(_N_FCASS - 1), _N_FCASS)
         fCass_A = 0.6 * y + 0.4
-        fCass_B = _interp_tables(pair("Bfc"), iy, fy, lane)
+        fCass_B = _interp_tables(pair("Bfc"), iy, fy)
 
         out = []
         for i, name in enumerate(_STATE_NAMES):
             x = states[i]
             if name in gate_names:
-                A = _interp_tables(pair("A_" + name), iv, fv, lane)
-                B = _interp_tables(pair("B_" + name), iv, fv, lane)
+                A = _interp_tables(pair("A_" + name), iv, fv)
+                B = _interp_tables(pair("B_" + name), iv, fv)
                 out.append(A + (x - A) * B)
             elif name == "fCass":
                 out.append(fCass_A + (x - fCass_A) * fCass_B)
@@ -721,6 +670,5 @@ def tabulated_rush_larsen(
     fun.table_error = table_error
     fun.n_entries = n_entries
     fun.v_range = (v0, v1)
-    fun.tables_packed = packed
     fun.__name__ = "tabulated_rush_larsen_step"
     return fun

@@ -11,7 +11,7 @@ Replaces the gotranx pipeline the reference applies to
 ``generalized_rush_larsen`` / ``forward_euler``.  ``celltype`` 0=endo,
 1=epi, 2=mid switches the published transmural scalings.
 
-TPU-first formulation: one fused jnp expression over a ``(45, n_points)``
+Accelerator-first formulation: one fused jnp expression over a ``(45, n_points)``
 state array, dtype-polymorphic, safe under ``jit``/``vmap``/``lax.scan``.
 The 26 Hodgkin-Huxley-type gates use the exact Rush-Larsen exponential
 update; the IKr Markov chain and the nca modes use the diagonally-
@@ -292,7 +292,7 @@ def _ghk(z, ci_gamma, co_gamma, vfrt, F):
     guarded at x = 0 (limit z*F*(ci*g_i - co*g_o))."""
     x = z * vfrt
     small = jnp.abs(x) < 1e-5
-    # exp(x)-1 instead of expm1 (no Pallas TPU lowering); small-|x| uses the series
+    # exp(x)-1 instead of expm1 (plain exp lowers in every kernel route); small-|x| uses the series
     denom = jnp.exp(jnp.where(small, 1.0, x)) - 1.0
     ratio = jnp.where(small, 1.0 - 0.5 * x + x * x / 12.0, x / denom)
     return z * F * ratio * (ci_gamma * jnp.exp(x) - co_gamma)

@@ -208,7 +208,7 @@ def active_tension(states, parameters):
     dCd = C - s["Cd"]
     eta = jnp.where(dCd < 0.0, p["etas"], p["etal"])
     Fd = eta * dCd
-    F1 = jnp.exp(p["p_b"] * C) - 1.0  # expm1 has no Pallas TPU lowering
+    F1 = jnp.exp(p["p_b"] * C) - 1.0  # plain exp lowers in every kernel route
     Tp = p["p_a"] * (F1 + Fd)
     return Ta, Tp, Ta + Tp
 

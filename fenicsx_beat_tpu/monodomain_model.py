@@ -1,6 +1,6 @@
 r"""Monodomain diffusion model.
 
-TPU-native counterpart of reference ``src/beat/monodomain_model.py``: solves
+JAX counterpart of reference ``src/beat/monodomain_model.py``: solves
 
 .. math::
 

@@ -617,7 +617,7 @@ void locate_points(const double* coords, const int32_t* cells, int64_t nc,
 // ---------------------------------------------------------------------------
 // rcm_ordering: reverse Cuthill-McKee over a CSR adjacency graph
 // (bandwidth-reducing node permutation; improves ELL gather locality for
-// the TPU SpMV).  perm_out[new_index] = old_index.
+// the device SpMV).  perm_out[new_index] = old_index.
 void rcm_ordering(const int64_t* indptr, const int32_t* indices, int64_t n,
                   int32_t* perm_out) {
     std::vector<int64_t> degree(n);

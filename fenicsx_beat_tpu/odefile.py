@@ -4,14 +4,14 @@ cell-model module.
 The reference compiles arbitrary gotran ODE files to stepping code *at
 demo runtime* with gotranx (``/root/reference/demos/
 niederer_benchmark.py:75-88``; model data in ``/root/reference/odes/``).
-This module is the TPU-native equivalent of that L9 function: it parses
+This module is the JAX equivalent of that L9 function: it parses
 the gotran declaration subset those files use and emits a Python module
 with the exact gotranx module contract the ODE solvers consume
 (``init_state_values`` / ``init_parameter_values`` / ``state_index`` /
 ``parameter_index`` / ``rhs`` / ``forward_euler`` /
 ``generalized_rush_larsen``), except the generated arithmetic is
-``jax.numpy`` — jit/vmap/grad-able, and accepted by the Pallas ionic
-single-kernel builder like the hand-written in-repo models.
+``jax.numpy`` — jit/vmap/grad-able, and accepted by the fused solvers
+like the hand-written in-repo models.
 
 **Format.**  A gotran file is syntactically valid Python: declaration
 calls ``states("Section", name=value, ...)``, ``parameters(...)`` (with
@@ -277,7 +277,7 @@ _HEADER = '''"""Generated from {name}.ode by fenicsx_beat_tpu.odefile.
 gotranx-compatible module contract (the reference generates the same
 surface at demo runtime: /root/reference/demos/niederer_benchmark.py:
 75-88); arithmetic is jax.numpy so the module jit/vmap/grads and feeds
-the Pallas ionic kernel builder unchanged.
+the fused solvers unchanged.
 """
 import jax
 import jax.numpy

@@ -1,6 +1,6 @@
 """Cellwise ionic ODE stepping + PDE<->ODE transfer adapters.
 
-TPU-native counterpart of reference ``src/beat/odesolver.py``.  The contract
+JAX counterpart of reference ``src/beat/odesolver.py``.  The contract
 is identical: a user RHS callable ``fun(states, t, parameters, dt) ->
 new_states`` stepped over a ``(num_states, num_points)`` array
 (``odesolver.py:67-79``), plus adapters that move the voltage row between
@@ -394,7 +394,7 @@ def make_multi_ode(
     on their own rows but are never read, so the trajectories of the
     marked nodes are exactly the per-marker ones.  Cost: each model runs
     over all nodes (2-3 markers => 2-3x ionic FLOPs), the price of static
-    shapes on TPU.
+    shapes under jit.
 
     Returns ``(ode_fun, init_union [S_max, n], masks [nm, n] bool,
     v_index_common)`` where ``ode_fun(states, t, parameters, dt)`` takes
@@ -450,9 +450,8 @@ def make_multi_ode(
     if len(marker_values) > 4:
         logger.warning(
             "make_multi_ode with %d markers: every model steps ALL nodes "
-            "(%dx the single-model ionic FLOPs) unless the pallas "
-            "block-skip kernel engages (TPU fused path, block-coherent "
-            "markers).  Consider merging regions that share a model.",
+            "(%dx the single-model ionic FLOPs).  Consider merging "
+            "regions that share a model.",
             len(marker_values),
             len(marker_values),
         )
@@ -472,15 +471,4 @@ def make_multi_ode(
             out = jnp.where(node_masks[i][None, :], y, out)
         return out
 
-    # Decomposition metadata for the pallas block-skip kernel
-    # (ops/pallas_ode.build_pallas_multi_ode_step): per grid block only the
-    # models actually present evaluate, so block-coherent markers cost
-    # ~1x the single-model FLOPs instead of n_models x.
-    ode_fun.multi = {
-        "funs": funs,
-        "params": [None if parameters[m] is None else np.asarray(parameters[m]) for m in marker_values],
-        "sizes": model_sizes,
-        "swaps": [np.asarray(swaps[m]) for m in marker_values],
-        "trivial_swap": trivial_swap,
-    }
     return ode_fun, init_union, masks, 0

@@ -1,3 +1,4 @@
-"""Compute kernels: quadrature, sparse ELL operators, CG solver, Pallas."""
+"""Compute kernels: quadrature, sparse operators, CG, preconditioners, the
+ionic Pallas kernel."""
 
 from . import cg, quadrature, sparse  # noqa: F401

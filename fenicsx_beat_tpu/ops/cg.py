@@ -1,14 +1,15 @@
 """Jitted preconditioned conjugate-gradient solver.
 
 Replaces PETSc KSP (reference ``src/beat/base_model.py:140-157,236``).  The
-reference defaults to CG + hypre BoomerAMG or direct LU/MUMPS; on TPU an AMG
-hierarchy is impractical, but the theta-scheme system ``C_m*Mass +
-theta*dt*K`` is mass-dominated (dt is small), so Jacobi-preconditioned CG
-converges in a handful of iterations.  The loop is a ``lax.while_loop`` —
-fully on device, no host round-trips per iteration.
+reference defaults to CG + hypre BoomerAMG or direct LU/MUMPS; the
+theta-scheme system ``C_m*Mass + theta*dt*K`` is mass-dominated (dt is
+small), so Jacobi-preconditioned CG converges in a handful of iterations.
+The loop is a ``lax.while_loop`` with a data-dependent trip count; on the
+GPU, XLA copies its predicate to the host once per iteration (a 4-byte
+device->host copy per CG iteration in a profiler trace).
 
 The ``dot`` argument abstracts the inner product so the same code runs
-sharded under ``shard_map`` (dots become ``lax.psum`` — the TPU analogue of
+sharded under ``shard_map`` (dots become ``lax.psum`` — the analogue of
 the per-iteration MPI allreduce inside PETSc KSP).
 """
 

@@ -1,19 +1,16 @@
-"""Fast VPU transcendentals for the ionic hot loop.
+"""Fast transcendentals for the ionic hot loop.
 
-ROOFLINE.json pins the fused TP06 GRL kernel compute-bound at ~130 us
-vs an ~87 us HBM floor (dx=0.1), on ~58 ``exp`` evaluations per node.
-XLA:TPU's ``exp`` is itself a range-reduced polynomial on the VPU, so a
-hand-rolled variant is not guaranteed to win — this module exists so the
-experiment can be *measured* (VERDICT r4 #8; the LUT, multirate and bf16
-experiments in docs/DESIGN.md section 8 set the record-the-negative
-precedent).
+The TP06 GRL step evaluates ~58 ``exp`` per node.  The compiler's own
+``exp`` is itself a range-reduced polynomial, so a hand-rolled variant is
+not guaranteed to win — this module exists so the experiment can be
+*measured*; it has not been measured on the GPU.
 
 :func:`fast_exp` is the classical bit-trick exponential: range-reduce to
 ``exp(x) = 2^k * exp(r)`` with ``|r| <= ln2/2``, evaluate a degree-6
 Taylor polynomial (relative error ~1.2e-7, at f32 resolution), and build
 ``2^k`` by writing the exponent bits directly — one int add + shift +
 bitcast instead of a second transcendental.  Every operation (floor,
-int32 convert, shift, bitcast, FMA chain) lowers to single Mosaic/VPU
+int32 convert, shift, bitcast, FMA chain) lowers to single vector
 instructions, which is the entire point: the candidate win is
 instruction *count*, not a cheaper approximation family.
 
@@ -40,7 +37,7 @@ _UNDERFLOW = -87.0
 
 def fast_exp(x):
     """Bit-trick ``exp`` for float32 (other dtypes fall back to
-    ``jnp.exp`` — f64 has no VPU fast path worth approximating).
+    ``jnp.exp`` — the degree-6 polynomial only reaches f32 accuracy).
 
     Accuracy: relative error < 2e-7 over the normal range (gated in
     tests/test_models.py against the ionic model's argument spread);

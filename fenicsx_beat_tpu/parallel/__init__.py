@@ -1,10 +1,10 @@
-"""Multi-chip spatial sharding: partitioning, halo exchange, sharded solver.
+"""Multi-device spatial sharding: partitioning, halo exchange, sharded solver.
 
-TPU-native replacement for the reference's MPI domain decomposition
+JAX replacement for the reference's MPI domain decomposition
 (DOLFINx mesh partitioning + PETSc VecGhost scatters + per-iteration KSP
 allreduces — see SURVEY.md §5.8 and reference ``base_model.py:203-206,
 241-242``).  Node arrays are sharded over a 1-D ``jax.sharding.Mesh``;
-SpMV halos ride ``lax.ppermute`` (ICI neighbors), CG dot products are
+SpMV halos ride ``lax.ppermute`` (neighbor exchanges), CG dot products are
 ``lax.psum``.  The ODE stage is embarrassingly parallel — zero
 communication, exactly like the reference's.
 """

@@ -2,7 +2,7 @@
 over the stacked ``[2, n]`` (v, u_e) system, with a sharded SA-AMG
 V-cycle preconditioning the elliptic extracellular block.
 
-Multi-chip counterpart of :class:`~fenicsx_beat_tpu.bidomain.
+Multi-device counterpart of :class:`~fenicsx_beat_tpu.bidomain.
 BidomainSolver`, sharing its block discretization (see that module's
 docstring for the math) and :class:`ShardedMonodomainSolver`'s partition
 machinery.  No reference counterpart exists at all — fenicsx-beat is
@@ -11,7 +11,7 @@ monodomain-only (its JOSS paper derives monodomain FROM this model,
 DOLFINx/PETSc; here the whole chunk (scan over steps, stacked-CG
 while_loop, halo ppermutes, V-cycles) is ONE jitted shard_map program.
 
-Sharded AMG split (the TPU-idiomatic "coarse grids on fewer ranks"):
+Sharded AMG split ("coarse grids on fewer ranks"):
 
 - **Level 0** (the only level whose work scales with n) smooths with the
   same halo-exchange SpMV the solve itself uses — Chebyshev polynomial
@@ -150,6 +150,11 @@ class ShardedBidomainSolver:
     # node-aligned ionic-model markers for dict-valued ode_fun (the same
     # contract as ShardedMonodomainSolver / the fused solvers)
     ode_markers: Any = None
+    # ionic step route (ops/ionic_kernel.select_route): None = the Pallas
+    # kernel on each GPU shard when the model qualifies, XLA otherwise;
+    # "xla" forces the jnp model, "interpret" runs the kernel in the
+    # Pallas interpreter (CPU tests)
+    ionic_kernel: str | None = None
 
     def __post_init__(self):
         self.dtype = self.dtype or default_dtype()
@@ -275,7 +280,7 @@ class ShardedBidomainSolver:
         # same halo SpMV as the solve
         self._hier = None
         if self.u_precond in ("auto", "amg"):
-            # TPU-tuned hierarchy defaults — see bidomain.py _build_step
+            # hierarchy defaults — see bidomain.py _build_step
             self._hier = build_amg(
                 kie_host, dtype=self.dtype, semidefinite=True,
                 strength_theta=(0.15, 0.05), omega=0.0, coarse_n=2500,
@@ -346,6 +351,24 @@ class ShardedBidomainSolver:
         gen_Ns, gen_exprs, gen_amp_idx = st.gen_Ns, st.gen_exprs, st.gen_amp_idx
         rtol, atol, maxiter = self.cg_rtol, self.cg_atol, self.cg_maxiter
         params_sharded = self._params_sharded
+        from ..device import platform_of
+        from ..ops.ionic_kernel import make_ionic_step
+
+        # node-aligned (sharded) parameters are traced per shard and take
+        # the XLA route; the route is exposed for tests and benchmarks
+        self.ionic_route, ionic_step = make_ionic_step(
+            ode_fun,
+            self.states.shape[0],
+            params_j,
+            v_index,
+            platform_of(self.states),
+            self.ionic_kernel,
+        )
+
+        def ionic(states, t, dt, pnode):
+            if params_sharded:
+                return ode_fun(states=states, t=t, parameters=pnode, dt=dt)
+            return ionic_step(states, states[v_index], t, dt)
         fwd = [(i, i + 1) for i in range(nd - 1)]
         bwd = [(i + 1, i) for i in range(nd - 1)]
         npdt = np.dtype(jnp.dtype(self.dtype).name)
@@ -457,7 +480,6 @@ class ShardedBidomainSolver:
             Rc3, Rv3, Pc3, Pv3, dinv03, lmax0_, subh,
             b_units, gq, pnode, t0, dt, amps, n_steps,
         ):
-            ode_params = pnode if params_sharded else params_j
             cols_loc = cols3[0]
             vm, vki, vkie = vm3[0], vki3[0], vkie3[0]
             A_vals = C_m * vm + (pde_theta * dt) * vki
@@ -481,7 +503,9 @@ class ShardedBidomainSolver:
                 restriction + replicated coarse hierarchy."""
                 if amg_mode == "dense":
                     r_full = jax.lax.all_gather(r_loc, axis, tiled=True)
-                    z_full = subh.coarse_inv @ r_full[:n_real]
+                    z_full = jnp.matmul(
+                        subh.coarse_inv, r_full[:n_real], precision=jax.lax.Precision.HIGHEST
+                    )
                     z_pad = jnp.zeros((part.n_pad,), dtype=r_loc.dtype)
                     z_pad = z_pad.at[:n_real].set(z_full)
                     idx = jax.lax.axis_index(axis)
@@ -550,9 +574,7 @@ class ShardedBidomainSolver:
 
             def one_step(carry, _):
                 states, u_e, t, dvu = carry
-                states = ode_fun(
-                    states=states, t=t, parameters=ode_params, dt=theta * dt
-                )
+                states = ionic(states, t, theta * dt, pnode)
                 v = states[v_index]
                 ts = t + pde_theta * dt
                 rhs_v = (
@@ -574,10 +596,7 @@ class ShardedBidomainSolver:
                 dvu = x - jnp.stack([v, u_e])
                 states = states.at[v_index].set(v_new)
                 if not godunov:
-                    states = ode_fun(
-                        states=states, t=t + theta * dt,
-                        parameters=ode_params, dt=(1.0 - theta) * dt,
-                    )
+                    states = ionic(states, t + theta * dt, (1.0 - theta) * dt, pnode)
                 return (states, u_new, t + dt, dvu), (
                     info.iterations, info.residual_norm, info.converged,
                 )
@@ -713,6 +732,7 @@ class ShardedBidomainSolver:
                       b_units, gen_tables, pnode, t0, dt, amps)
 
         self._run_chunk = lambda *a: run_chunk_ops(self._operands, *a)
+        self._run_chunk_ops = run_chunk_ops
 
     # ------------------------------------------------------------------
     @property
@@ -747,8 +767,11 @@ class ShardedBidomainSolver:
         T0, T = interval
         n_total = int(round((T - T0) / dt))
         chunk = save_freq or n_total
-        t = jnp.asarray(T0, dtype=self.dtype)
-        dtj = jnp.asarray(dt, dtype=self.dtype)
+        # scalars replicated over the mesh, as the chunk returns its time:
+        # every chunk then meets the inputs the first one compiled for
+        replicated = NamedSharding(self.device_mesh, P())
+        t = jax.device_put(jnp.asarray(T0, dtype=self.dtype), replicated)
+        dtj = jax.device_put(jnp.asarray(dt, dtype=self.dtype), replicated)
         done = 0
         ok = True
         while done < n_total:
@@ -758,7 +781,7 @@ class ShardedBidomainSolver:
                     self.states, self.u_e_padded, t, it_max, rnorm, conv,
                 ) = self._run_chunk(
                     self.states, self.u_e_padded, t, dtj,
-                    self.stimulus_amplitudes(), n,
+                    jax.device_put(self.stimulus_amplitudes(), replicated), n,
                 )
                 self.states.block_until_ready()
             done += n

@@ -1,14 +1,15 @@
-"""Multi-host (DCN) entry points for the sharded solver.
+"""Multi-host entry points for the sharded solver.
 
 The reference's distribution entry is the MPI communicator passed into
 DOLFINx mesh construction (reference ``geometry.py:112-139``, launched by
-``mpirun``).  The TPU-native equivalent is ``jax.distributed`` process
+``mpirun``).  The JAX equivalent is ``jax.distributed`` process
 initialization plus a ``jax.sharding.Mesh`` over the global device list:
 the same :class:`~fenicsx_beat_tpu.parallel.solver.ShardedMonodomainSolver`
-program then spans hosts — XLA routes halo ``ppermute``s over ICI within a
-slice and DCN across slices, with no code change.
+program then spans hosts — XLA routes halo ``ppermute``s over the
+intra-host links (NVLink between the GPUs of one host) and the network
+across hosts, with no code change.
 
-Single-host multi-chip needs none of this: build the mesh directly from
+Single-host multi-device needs none of this: build the mesh directly from
 ``jax.devices()`` (see ``__graft_entry__.dryrun_multichip``).
 """
 
@@ -30,8 +31,9 @@ def initialize_distributed(
 ) -> None:
     """Initialize multi-process jax (idempotent).
 
-    With no arguments, jax auto-detects the cluster environment (TPU pod
-    metadata, SLURM, Open MPI).  Call once per process before any other
+    With no arguments, jax auto-detects the cluster environment (SLURM,
+    Open MPI); elsewhere pass ``coordinator_address`` (``host:port``),
+    ``num_processes`` and ``process_id``.  Call once per process before any other
     jax use — the reference's ``mpirun -n N`` moment.
     """
     import jax

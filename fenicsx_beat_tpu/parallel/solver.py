@@ -1,6 +1,6 @@
 """Sharded fused monodomain solver: shard_map + ppermute halos + psum CG.
 
-Multi-chip counterpart of :class:`~fenicsx_beat_tpu.fused.
+Multi-device counterpart of :class:`~fenicsx_beat_tpu.fused.
 FusedMonodomainSolver`, replacing the reference's MPI stack:
 
 | reference (MPI/PETSc)                      | here (XLA collectives)        |
@@ -18,7 +18,6 @@ compute on ICI.
 
 from __future__ import annotations
 
-import logging
 from dataclasses import dataclass, field
 from functools import partial
 from typing import Any, Callable
@@ -39,7 +38,6 @@ from ..stimulation import TimeWindow, dx as dx_measure
 from ..telemetry import BaseMonitor, NullMonitor
 from .partition import Partition1D, pad_global, partition_ell, partition_quadrature
 
-logger = logging.getLogger(__name__)
 
 __all__ = ["ShardedMonodomainSolver", "PartitionedStimuli", "partition_stimuli"]
 
@@ -189,12 +187,11 @@ class ShardedMonodomainSolver:
     monitor: BaseMonitor = field(default_factory=NullMonitor)
     ode_markers: Any = None  # per-node marker array/Function: multi-model
     operator_cache_key: str | None = None  # opt-in disk cache of assembly
-    # paged lane-gather local SpMV for UNSTRUCTURED meshes (None = auto:
-    # TPU backend only): each device's local ELL block is repacked into
-    # the ops/pallas_ell format — the XLA gather it replaces measures
-    # ~1 GB/s effective on TPU (docs/DESIGN.md §3.1b); True forces
-    # (interpret mode off-TPU, used by the equivalence tests)
-    use_lane_gather: bool | None = None
+    # ionic step route (ops/ionic_kernel.select_route): None = the Pallas
+    # kernel on each GPU shard when the model qualifies, XLA otherwise;
+    # "xla" forces the jnp model, "interpret" runs the kernel in the
+    # Pallas interpreter (CPU tests)
+    ionic_kernel: str | None = None
 
     def __post_init__(self):
         self.dtype = self.dtype or default_dtype()
@@ -341,39 +338,6 @@ class ShardedMonodomainSolver:
         self._vals_mass = vals_mass
         self._vals_stiff = vals_stiff
 
-        # unstructured TPU path: repack every device's local ELL block
-        # into the paged lane-gather format (one shared page layout for
-        # the mass/stiffness pair, so the dt-traced combination inside
-        # the chunk stays value-level)
-        lane = self.use_lane_gather
-        if lane is None:
-            lane = jax.default_backend() == "tpu"
-        lane = bool(lane) and self._offsets is None
-        self._lane = None
-        if lane:
-            from .lane import partition_lane_gather
-
-            npdt_l = np.dtype(jnp.dtype(self.dtype).name)
-            try:
-                ri4, l5, (vm5, vk5), (dm2, dk2), tails_l, meta_l = (
-                    partition_lane_gather(
-                        self.part,
-                        np.asarray(self._cols),
-                        [np.asarray(self._vals_mass), np.asarray(self._vals_stiff)],
-                        self._tail,
-                        npdt_l,
-                    )
-                )
-                self._lane = {
-                    "ri4": ri4, "l5": l5, "vm5": vm5, "vk5": vk5,
-                    "dm2": dm2, "dk2": dk2, "tails": tails_l, "meta": meta_l,
-                }
-            except Exception as exc:
-                logger.warning(
-                    "lane-gather partition unavailable (%s); using the XLA "
-                    "ELL halo SpMV", exc,
-                )
-
         st_part = partition_stimuli(
             self.V, self.mesh, self.I_s, self.part, self._perm, self._iperm, self.dtype
         )
@@ -449,6 +413,24 @@ class ShardedMonodomainSolver:
         ode_fun = self.ode_fun
         params_j = self._params_j
         params_sharded = self._params_sharded
+        from ..device import platform_of
+        from ..ops.ionic_kernel import make_ionic_step
+
+        # node-aligned (sharded) parameters are traced per shard and take
+        # the XLA route; the route is exposed for tests and benchmarks
+        self.ionic_route, ionic_step = make_ionic_step(
+            ode_fun,
+            self.states.shape[0],
+            params_j,
+            v_index,
+            platform_of(self.states),
+            self.ionic_kernel,
+        )
+
+        def ionic(states, t, dt, pnode):
+            if params_sharded:
+                return ode_fun(states=states, t=t, parameters=pnode, dt=dt)
+            return ionic_step(states, states[v_index], t, dt)
         windows = self._windows
         win_amp_idx = self._win_amp_idx
         gen_Ns = self._gen_Ns
@@ -488,36 +470,6 @@ class ShardedMonodomainSolver:
             def diag_of(A_vals, cols_loc, tail_loc=None):
                 return A_vals[:, k0]
 
-        elif self._lane is not None:
-            from ..ops.pallas_ell import LaneGatherMatrix
-
-            meta_l = self._lane["meta"]
-            Rc_lane = meta_l["Rc"]
-            n_ext_lane = meta_l["n_ext"]
-            lane_interp = jax.default_backend() != "tpu"
-
-            def spmv(vals_loc, cols_loc, x_loc, tail_loc=None):
-                # paged lane-gather local SpMV (ops/pallas_ell.py) over
-                # the halo-extended vector; the overflow tail is the same
-                # scatter-add the hybrid ELL path uses
-                ri, lanes = cols_loc
-                x_ext = halo_extend(x_loc)
-                L = LaneGatherMatrix(
-                    rowidx=ri, lanes=lanes, vals=vals_loc,
-                    shape=(n_local, n_ext_lane), Rc=Rc_lane,
-                    interpret=lane_interp,
-                )
-                y = L @ x_ext
-                if tail_loc is not None:
-                    tr, tc, tv = tail_loc
-                    y = y.at[tr].add(tv * x_ext[tc])
-                return y
-
-            def diag_of(A_vals, cols_loc, tail_loc=None):
-                raise AssertionError(
-                    "lane path combines precomputed diagonal streams"
-                )
-
         else:
 
             def spmv(vals_loc, cols_loc, x_loc, tail_loc=None):
@@ -555,17 +507,9 @@ class ShardedMonodomainSolver:
             states_loc, act_loc, cols3, vm3, vk3, tr3, tc3, tvm3, tvk3,
             b_units, gq, pnode, t0, dt, amps, n_steps,
         ):
-            ode_params = pnode if params_sharded else params_j
-            if self._lane is not None and offsets is None:
-                # cols3 carries (rowidx, lanes, diag_mass, diag_stiff)
-                ri4_b, l5_b, dm2_b, dk2_b = cols3
-                cols_loc = (ri4_b[0], l5_b[0])
-                vm = vm3[0]
-                vk = vk3[0]
-            else:
-                cols_loc = cols3[0]
-                vm = vm3[0]
-                vk = vk3[0]
+            cols_loc = cols3[0]
+            vm = vm3[0]
+            vk = vk3[0]
             A_vals = C_m * vm + (pde_theta * dt) * vk
             B_vals = C_m * vm - ((1.0 - pde_theta) * dt) * vk
             if tr3.shape[-1] > 0:
@@ -574,12 +518,7 @@ class ShardedMonodomainSolver:
                 tail_B = (tr, tc, C_m * tvm3[0] - ((1.0 - pde_theta) * dt) * tvk3[0])
             else:
                 tail_A = tail_B = None
-            if self._lane is not None and offsets is None:
-                # the lane pack's diagonal streams combine value-level,
-                # exactly like the operator streams
-                diag = C_m * dm2_b[0] + (pde_theta * dt) * dk2_b[0]
-            else:
-                diag = diag_of(A_vals, cols_loc, tail_A)
+            diag = diag_of(A_vals, cols_loc, tail_A)
 
             def stim_vector(t):
                 # amplitudes are traced so Stimulus.assign takes effect at
@@ -603,7 +542,7 @@ class ShardedMonodomainSolver:
 
             def one_step(carry, _):
                 states, act, t, dv = carry
-                states = ode_fun(states=states, t=t, parameters=ode_params, dt=theta * dt)
+                states = ionic(states, t, theta * dt, pnode)
                 v = states[v_index]
                 b = spmv(B_vals, cols_loc, v, tail_B) + dt * stim_vector(t + pde_theta * dt)
                 # warm start with the previous solve increment (matches the
@@ -621,12 +560,7 @@ class ShardedMonodomainSolver:
                 dv = v_new - v
                 states = states.at[v_index].set(v_new)
                 if not np.isclose(theta, 1.0):
-                    states = ode_fun(
-                        states=states,
-                        t=t + theta * dt,
-                        parameters=ode_params,
-                        dt=(1.0 - theta) * dt,
-                    )
+                    states = ionic(states, t + theta * dt, (1.0 - theta) * dt, pnode)
                     v_new = states[v_index]
                 act = jnp.where((v_new > thr) & (act < 0), t, act)
                 return (states, act, t + dt, dv), (
@@ -662,55 +596,34 @@ class ShardedMonodomainSolver:
         mesh = self.device_mesh
 
         # Device-resident operands pushed ONCE with their final shardings
-        # and threaded through the jitted chunk as ARGUMENTS (closure
-        # constants are pulled back at lowering / re-shipped per execution
-        # on remote-TPU backends; see FusedMonodomainSolver._build_kernels).
+        # and threaded through the jitted chunk as ARGUMENTS (no large
+        # constants in the compiled program).
         def put(x, spec):
             # device_put directly from the host array: splits on host and
             # ships each shard once (jnp.asarray first would transfer the
             # whole array to device 0 and then redistribute)
             return jax.device_put(np.asarray(x), NamedSharding(mesh, spec))
 
-        lane_mode = self._lane is not None and offsets is None
-        if lane_mode:
-            L = self._lane
-            cols_arg = (L["ri4"], L["l5"], L["dm2"], L["dk2"])
-            vals_mass_arg, vals_stiff_arg = L["vm5"], L["vk5"]
-            if L["tails"] is not None:
-                tr3, tc3, tvm3, tvk3 = L["tails"]
-            else:
-                tr3 = tc3 = np.zeros((nd, 0), dtype=np.int32)
-                tvm3 = tvk3 = np.zeros((nd, 0), dtype=L["vm5"].dtype)
-            cols_spec = (
-                P(axis, None, None, None),  # rowidx [nd, nb, NP, 8]
-                P(axis, None, None, None, None),  # lanes [nd, nb, NP, 8, 128]
-                P(axis, None),  # diag mass [nd, n_local]
-                P(axis, None),  # diag stiffness
-            )
-            vals_spec = P(axis, None, None, None, None)
+        cols_arg = (
+            self._cols
+            if self._cols is not None
+            else np.zeros((nd, 1, 1), dtype=np.int32)
+        )
+        vals_mass_arg, vals_stiff_arg = self._vals_mass, self._vals_stiff
+        if self._tail is not None:
+            tr3, tc3, tvm3, tvk3 = self._tail
         else:
-            cols_arg = (
-                self._cols
-                if self._cols is not None
-                else np.zeros((nd, 1, 1), dtype=np.int32)
-            )
-            vals_mass_arg, vals_stiff_arg = self._vals_mass, self._vals_stiff
-            if self._tail is not None:
-                tr3, tc3, tvm3, tvk3 = self._tail
-            else:
-                tr3 = tc3 = np.zeros((nd, 0), dtype=np.int32)
-                tvm3 = tvk3 = np.zeros((nd, 0), dtype=np.asarray(self._vals_mass).dtype)
-            cols_spec = P(axis, None, None)
-            vals_spec = P(axis, None, None)
+            tr3 = tc3 = np.zeros((nd, 0), dtype=np.int32)
+            tvm3 = tvk3 = np.zeros((nd, 0), dtype=np.asarray(self._vals_mass).dtype)
+        cols_spec = P(axis, None, None)
+        vals_spec = P(axis, None, None)
         pnode_arg = (
             self._params_j
             if params_sharded
             else np.zeros((0,), dtype=np.dtype(jnp.dtype(self.dtype).name))
         )
         self._operands = (
-            tuple(put(a, s) for a, s in zip(cols_arg, cols_spec))
-            if lane_mode
-            else put(cols_arg, cols_spec),
+            put(cols_arg, cols_spec),
             put(vals_mass_arg, vals_spec),
             put(vals_stiff_arg, vals_spec),
             put(tr3, P(axis, None)),
@@ -750,7 +663,7 @@ class ShardedMonodomainSolver:
                 in_specs=(
                     P(None, axis),  # states
                     P(axis),  # activation
-                    cols_spec,  # cols3 (ELL) or lane (rowidx, lanes, diags)
+                    cols_spec,  # cols3 (ELL)
                     vals_spec,  # vals mass
                     vals_spec,  # vals stiff
                     P(axis, None),  # tail rows (local)
@@ -811,8 +724,11 @@ class ShardedMonodomainSolver:
         T0, T = interval
         n_total = int(round((T - T0) / dt))
         chunk = save_freq or n_total
-        t = jnp.asarray(T0, dtype=self.dtype)
-        dtj = jnp.asarray(dt, dtype=self.dtype)
+        # scalars replicated over the mesh, as the chunk returns its time:
+        # every chunk then meets the inputs the first one compiled for
+        replicated = NamedSharding(self.device_mesh, P())
+        t = jax.device_put(jnp.asarray(T0, dtype=self.dtype), replicated)
+        dtj = jax.device_put(jnp.asarray(dt, dtype=self.dtype), replicated)
         done = 0
         all_converged = True
         while done < n_total:
@@ -826,7 +742,12 @@ class ShardedMonodomainSolver:
                     rnorm,
                     conv,
                 ) = self._run_chunk(
-                    self.states, self.activation_time, t, dtj, self.stimulus_amplitudes(), n
+                    self.states,
+                    self.activation_time,
+                    t,
+                    dtj,
+                    jax.device_put(self.stimulus_amplitudes(), replicated),
+                    n,
                 )
                 self.states.block_until_ready()
             done += n

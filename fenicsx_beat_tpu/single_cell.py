@@ -1,6 +1,6 @@
 """0-D single-cell pacing to steady state (limit cycle), with hash cache.
 
-TPU-native counterpart of reference ``src/beat/single_cell.py``: run
+JAX counterpart of reference ``src/beat/single_cell.py``: run
 ``nbeats`` beats of ``BCL`` ms with timestep ``dt`` and cache the final
 state to ``.npy`` keyed by an md5 of the RHS bytecode + arguments
 (``single_cell.py:68-110``).  Where the reference JITs the sequential

@@ -1,6 +1,6 @@
 """Stimulus protocols: measures, unit-aware amplitudes, activation patterns.
 
-TPU-native counterpart of reference ``src/beat/stimulation.py``.  Where the
+JAX counterpart of reference ``src/beat/stimulation.py``.  Where the
 reference builds symbolic UFL conditionals evaluated by FFCx-generated
 kernels (``stimulation.py:270``, ``:335-351``), stimuli here are plain
 jax-traceable callables ``expr(x, t) -> value`` with ``x`` shaped
@@ -158,8 +158,7 @@ def separable_stimulus_terms(stim_quads):
 
     A TimeWindow stimulus is a purely temporal 0/1 window times a fixed
     spatial load, so its unit load vector is assembled ONCE on the host
-    (a per-step quadrature scatter-add serializes on the TPU VPU —
-    measured ~570 us/step at 442k nodes).  Used identically by the
+    instead of a quadrature scatter-add every step.  Used identically by the
     fused, OO, and sharded solvers so the window semantics cannot
     diverge between them.
 
@@ -273,8 +272,8 @@ def near(a, b, tol: float = 1e-12):
 class RandomActivation:
     """Callable spatio-temporal activation pattern over discrete points.
 
-    Evaluation is a broadcast over the point/delay arrays — a single fused
-    VPU expression instead of the reference's N-term UFL conditional tree
+    Evaluation is a broadcast over the point/delay arrays — one fused
+    elementwise expression instead of the reference's N-term UFL conditional tree
     (``stimulation.py:335-362``)."""
 
     points: np.ndarray  # [N, d]

@@ -1,6 +1,6 @@
 """Minimal physical-unit system (pint-compatible subset).
 
-TPU-native re-implementation of the unit handling used by the reference
+In-repo re-implementation of the unit handling used by the reference
 (``src/beat/units.py:1-10``).  The reference relies on the external ``pint``
 package; here we implement a small, dependency-free registry that covers the
 electrophysiology units the framework needs (S/m, uA/cm**2, uF/cm**2,

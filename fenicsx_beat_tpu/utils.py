@@ -1,6 +1,6 @@
 """FEM helper utilities: projection, space parsing, transmural layers.
 
-TPU-native counterpart of reference ``src/beat/utils.py``: cross-space
+JAX counterpart of reference ``src/beat/utils.py``: cross-space
 local projection (``utils.py:26-58``), string-to-space parsing
 (``utils.py:61-112``), and transmural layer labeling via Laplace solves
 with Dirichlet BCs (``utils.py:115-355``) — here solved by the in-repo

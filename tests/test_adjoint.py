@@ -804,7 +804,7 @@ def test_host_segmented_carry_clip_resets_nonfinite_carry():
     under ``carry_clip`` rather than poison every earlier segment: the
     naive ``leaf * scale`` with ``scale = 0`` yields ``Inf * 0 = NaN``
     (IEEE), which is exactly the failure mode carry_clip exists to
-    contain (ADVICE r4).  The toy: ``traces = a * sqrt(s)`` evaluated at
+    contain.  The toy: ``traces = a * sqrt(s)`` evaluated at
     ``s = 0`` has an infinite state gradient while the parameter
     gradient stays finite, so the chained carry leaving the last segment
     is Inf and the recovered total gradient must still be finite."""
@@ -841,7 +841,7 @@ def test_host_segmented_carry_clip_resets_nonfinite_carry():
 def test_cg_implicit_atol_deprecated_alias():
     """``atol=`` still works but warns: the normalization made it
     relative-to-max|b|, and the rename to ``atol_scaled`` makes that
-    explicit at call sites (ADVICE r4)."""
+    explicit at call sites."""
     rng = np.random.default_rng(3)
     A = rng.standard_normal((6, 6))
     A = A @ A.T + 6 * np.eye(6)
@@ -988,7 +988,7 @@ def test_window_outlier_drops_exploding_window():
     """Trimmed window aggregation: a window whose gradient norm is an
     outlier vs the median across windows is dropped from the sum; the
     untrimmed sum keeps it (regression for the measured direction
-    collapse at dx=0.5/T=100 ms, FIT_SCALE.json fdcheck)."""
+    collapse)."""
     from fenicsx_beat_tpu.adjoint import host_segmented_value_and_grad
 
     def sim(params, states0_in=None, t0=None, return_final=True):
@@ -1036,7 +1036,7 @@ def test_window_outlier_drops_nonfinite_window():
 
 def test_sharded_diff_simulator_matches_single_device():
     """value_and_grad THROUGH shard_map == the single-device gradient
-    (VERDICT r4 #5): the halo exchange VJP is a ppermute, the implicit
+    the halo exchange VJP is a ppermute, the implicit
     CG adjoint re-runs the collective solver, and replicated parameter
     cotangents psum-reduce across the mesh."""
     from jax.sharding import Mesh
@@ -1102,10 +1102,11 @@ def test_sharded_diff_simulator_matches_single_device():
         np.asarray(sim2(params)), np.asarray(tr_ref), rtol=1e-8, atol=1e-10)
 
 
-def test_lane_ops_diff_path_matches_ell():
-    """The lane-gather diff path (pallas SpMV behind a symmetry-based
-    custom VJP) must reproduce the plain ELL path's value AND gradients
-    on an unstructured mesh (interpret mode on CPU)."""
+def test_unstructured_diff_path_matches_finite_differences():
+    """On the unstructured LV ellipsoid (ELL + apex-tail operators, two
+    anisotropic stiffness components combined in-trace) the reverse-mode
+    gradient w.r.t. the conductivity weights matches central finite
+    differences of the same float64 simulator."""
     from fenicsx_beat_tpu.adjoint import build_diff_simulator
     from fenicsx_beat_tpu.conductivities import as_cell_tensors
     from fenicsx_beat_tpu.geometry import get_lv_ellipsoid_geometry
@@ -1126,7 +1127,8 @@ def test_lane_ops_diff_path_matches_ell():
         f /= np.linalg.norm(f, axis=1, keepdims=True)
     Kf = np.einsum("ci,cj->cij", f, f)
     Kt = np.eye(3)[None] - Kf
-    kw = dict(
+    sim = build_diff_simulator(
+        m3,
         ode_fun=fhn.forward_euler,
         init_states=fhn.init_state_values(),
         v_index=fhn.state_index("v"),
@@ -1135,24 +1137,22 @@ def test_lane_ops_diff_path_matches_ell():
         dt=0.1,
         n_steps=10,
         stiffness_components=[as_cell_tensors(Kf, m3), as_cell_tensors(Kt, m3)],
-        cg_rtol=1e-11,
-        cg_atol=1e-13,
+        cg_rtol=1e-12,
+        cg_atol=1e-14,
         dtype=jnp.float64,
     )
-    sim_ell = build_diff_simulator(m3, use_lane_ops=False, **kw)
-    sim_lane = build_diff_simulator(m3, use_lane_ops=True, **kw)
-    ionic = jnp.asarray(fhn.init_parameter_values(stim_amplitude=0.0),
-                        jnp.float64)
-    params = {"g": jnp.asarray([0.003, 0.001], jnp.float64), "ionic": ionic}
-    target = sim_ell(params) * 0.9
+    ionic = jnp.asarray(fhn.init_parameter_values(stim_amplitude=0.0), jnp.float64)
+    g0 = np.array([0.003, 0.001])
+    target = sim({"g": jnp.asarray(g0), "ionic": ionic}) * 0.9
 
-    def loss(sim):
-        return lambda p: jnp.mean((sim(p) - target) ** 2)
+    def loss(g):
+        return jnp.mean((sim({"g": g, "ionic": ionic}) - target) ** 2)
 
-    v1, g1 = jax.value_and_grad(loss(sim_ell))(params)
-    v2, g2 = jax.value_and_grad(loss(sim_lane))(params)
-    np.testing.assert_allclose(float(v2), float(v1), rtol=1e-9)
-    np.testing.assert_allclose(np.asarray(g2["g"]), np.asarray(g1["g"]),
-                               rtol=1e-6)
-    np.testing.assert_allclose(np.asarray(g2["ionic"]),
-                               np.asarray(g1["ionic"]), rtol=1e-6, atol=1e-12)
+    grad = np.asarray(jax.grad(loss)(jnp.asarray(g0)))
+    eps = 1e-6
+    fd = np.array([
+        (float(loss(jnp.asarray(g0 + eps * e))) - float(loss(jnp.asarray(g0 - eps * e)))) / (2 * eps)
+        for e in np.eye(2)
+    ])
+    assert np.all(np.abs(grad) > 0)
+    np.testing.assert_allclose(grad, fd, rtol=1e-5)

@@ -190,7 +190,7 @@ def test_small_operator_is_exact_dense_solve():
 
 
 def test_float32_hierarchy():
-    """dtype=float32 (the TPU path) builds a f32 hierarchy and still
+    """dtype=float32 (the GPU production path) builds a f32 hierarchy and still
     preconditions to f32-grade tolerance."""
     K = _lv_stiffness(0.9)
     h = build_amg(K, dtype=jnp.float32, semidefinite=True)

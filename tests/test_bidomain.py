@@ -378,6 +378,34 @@ def test_amg_u_precond_on_unstructured_lv():
     np.testing.assert_allclose(u_amg, u_jac, rtol=0, atol=5e-5)
 
 
+@pytest.mark.parametrize("scheme", ["monolithic", "gs"])
+def test_bidomain_ionic_kernel_interpret_matches_xla(scheme):
+    """The bidomain solver's ionic step through the Pallas kernel
+    (interpreter on the CPU) reproduces the jnp model through XLA."""
+    from fenicsx_beat_tpu.models import tentusscher_panfilov_2006 as tp06
+
+    mesh, make_stim = _setup(nx=6)
+    common = dict(
+        mesh=mesh, M_i=0.0012, M_e=0.0024,
+        ode_fun=tp06.generalized_rush_larsen,
+        init_states=tp06.init_state_values(),
+        parameters=tp06.init_parameter_values(stim_amplitude=0.0),
+        v_index=tp06.state_index("V"),
+        I_s=make_stim(amp=80.0), theta=0.5, scheme=scheme,
+    )
+    runs = {}
+    for route in ("xla", "interpret"):
+        bi = BidomainSolver(ionic_kernel=route, **common)
+        assert bi.ionic_route == route
+        bi.solve((0.0, 1.0), dt=0.05)
+        runs[route] = (np.asarray(bi.states), np.asarray(bi.u_e))
+    assert runs["xla"][0][tp06.state_index("V")].max() > -80.0  # stimulated
+    for a, b in zip(runs["interpret"], runs["xla"]):
+        np.testing.assert_allclose(a, b, rtol=1e-10, atol=1e-10)
+    # off the GPU the default route is XLA
+    assert BidomainSolver(**common).ionic_route == "xla"
+
+
 def test_u_precond_validation():
     mesh, make_stim = _setup(nx=4)
     kwargs = dict(
@@ -399,64 +427,76 @@ def test_u_precond_validation():
         BidomainSolver(u_precond="dct", **kwargs)
 
 
-@pytest.mark.parametrize("theta", [1.0, 0.5])
-def test_pallas_ionic_path_matches_jnp(theta):
-    """The pallas single-kernel ionic integration (blocked carry, live-v
-    injection — round 4, closing the ionic-bound bidomain step measured
-    in BIDOMAIN_SCALE.json) reproduces the plain jnp path (interpret
-    mode on CPU, like tests/test_fused.py)."""
-    mesh, make_stim = _setup(nx=8)
-    common = dict(
-        mesh=mesh, M_i=0.004, M_e=0.008, I_s=make_stim(),
-        ode_fun=fhn.forward_euler, init_states=fhn.init_state_values(),
+def _block_reference(mesh, M_i, M_e, states0, theta, n_steps, dt, pde_theta=0.5):
+    """SciPy float64 reference of the monolithic bidomain splitting: FHN
+    ionic sub-steps, then one direct solve per step of the block system
+    (u_e pinned to zero mean by a Lagrange multiplier)."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+
+    from fenicsx_beat_tpu.conductivities import as_cell_tensors
+
+    V = fem.functionspace(mesh, ("P", 1))
+    n = V.ndofs
+    rows, cols, mv, kiv, shape = fem.assemble_mass_stiffness_coo(V, as_cell_tensors(M_i, mesh))
+    *_, kev, _ = fem.assemble_mass_stiffness_coo(V, as_cell_tensors(M_e, mesh))
+    Mm = sp.csr_matrix((mv, (rows, cols)), shape=shape)
+    Ki = sp.csr_matrix((kiv, (rows, cols)), shape=shape)
+    Kie = Ki + sp.csr_matrix((kev, (rows, cols)), shape=shape)
+    th = pde_theta
+    A = Mm + th * dt * Ki
+    B = Mm - (1.0 - th) * dt * Ki
+    e = sp.csr_matrix(np.concatenate([np.zeros(n), np.ones(n)])[None, :])
+    S = sp.bmat([[sp.bmat([[A, dt * Ki], [dt * Ki, (dt / th) * Kie]]), e.T], [e, None]]).tocsc()
+    p = fhn.init_parameter_values(stim_amplitude=0.0)
+    vi = fhn.state_index("v")
+    step = lambda y, t, h: np.array(fhn.forward_euler(jnp.asarray(y), t, p, h))  # noqa: E731
+    y = np.array(states0, dtype=np.float64)
+    u = np.zeros(n)
+    for k in range(n_steps):
+        t = k * dt
+        y = step(y, t, theta * dt)
+        v = y[vi]
+        rhs = np.concatenate([B @ v, -(dt / th) * (1.0 - th) * (Ki @ v), [0.0]])
+        x = spla.spsolve(S, rhs)
+        y[vi], u = x[:n], x[n : 2 * n]
+        if theta < 1.0:
+            y = step(y, t + theta * dt, (1.0 - theta) * dt)
+    return y[vi], u
+
+
+def _bidomain_vs_reference(mesh, M_i, M_e, theta, atol):
+    n = mesh.num_vertices
+    states0 = np.tile(fhn.init_state_values()[:, None], (1, n))
+    states0[fhn.state_index("v")] = np.linspace(0.0, 1.0, n) ** 2
+    n_steps, dt = 5, 0.1
+    bi = BidomainSolver(
+        mesh=mesh, M_i=M_i, M_e=M_e, I_s=None,
+        ode_fun=fhn.forward_euler, init_states=states0,
         parameters=fhn.init_parameter_values(stim_amplitude=0.0),
         v_index=fhn.state_index("v"), theta=theta, pde_theta=0.5,
-        cg_rtol=1e-11, cg_atol=1e-13,
+        u_precond="jacobi", cg_rtol=1e-12, cg_atol=1e-14,
     )
-    ref = BidomainSolver(use_pallas_ode=False, **common)
-    ref.solve((0.0, 0.5), dt=0.1)
-    assert not ref._pallas_ionic and not ref._pallas_spmv
-
-    # pallas_spmv_min_nodes=1: also exercise the stencil-SpMV CG streams
-    pal = BidomainSolver(use_pallas_ode=True, pallas_spmv_min_nodes=1, **common)
-    assert pal._pallas_ionic and pal._pallas_spmv
-    pal.solve((0.0, 0.5), dt=0.1)
-    np.testing.assert_allclose(np.asarray(pal.v), np.asarray(ref.v),
-                               rtol=0, atol=1e-9)
-    np.testing.assert_allclose(np.asarray(pal.u_e), np.asarray(ref.u_e),
-                               rtol=0, atol=1e-9)
+    bi.solve((0.0, n_steps * dt), dt=dt)
+    v_ref, u_ref = _block_reference(mesh, M_i, M_e, states0, theta, n_steps, dt)
+    np.testing.assert_allclose(np.asarray(bi.v), v_ref, rtol=0, atol=atol)
+    np.testing.assert_allclose(np.asarray(bi.u_e), u_ref - u_ref.mean(), rtol=0, atol=atol)
 
 
-def test_lane_gather_unstructured_matches_xla():
-    """The paged lane-gather path (system streams + AMG hierarchy;
-    interpret mode on CPU) reproduces the XLA ELL bidomain on the
-    unstructured LV to solver tolerance."""
-    mesh, M_i, M_e, I_s = _lv_setup(psize_ref=1.2)
-    common = dict(
-        mesh=mesh, M_i=M_i, M_e=M_e, I_s=I_s,
-        ode_fun=fhn.forward_euler, init_states=fhn.init_state_values(),
-        parameters=fhn.init_parameter_values(stim_amplitude=0.0),
-        v_index=fhn.state_index("v"), theta=1.0,
-        cg_rtol=1e-11, cg_atol=1e-13,
-    )
-    ref = BidomainSolver(use_pallas_ode=False, **common)
-    assert not ref._lane_gather
-    ref.solve((0.0, 0.5), dt=0.1)
+@pytest.mark.parametrize("theta", [1.0, 0.5])
+def test_bidomain_matches_scipy_block_solve(theta):
+    """The monolithic bidomain step (deflated block PCG on the stacked
+    [2, n] vector, theta splitting around FHN) equals a direct SciPy solve
+    of the same block system on a structured grid."""
+    mesh, _ = _setup(nx=8)
+    _bidomain_vs_reference(mesh, 0.004, 0.008, theta, atol=1e-9)
 
-    # u_precond='amg' forces the hierarchy (auto defers to lane-gather
-    # Jacobi below amg_min_nodes — the measured TPU crossover)
-    lane = BidomainSolver(
-        use_pallas_ode=True, pallas_spmv_min_nodes=1, u_precond="amg", **common
-    )
-    assert lane._lane_gather and lane._u_amg and not lane._pallas_spmv
-    auto = BidomainSolver(use_pallas_ode=True, pallas_spmv_min_nodes=1, **common)
-    assert auto._lane_gather and not auto._u_amg  # small n: Jacobi wins
-    lane.solve((0.0, 0.5), dt=0.1)
-    np.testing.assert_allclose(np.asarray(lane.v), np.asarray(ref.v),
-                               rtol=0, atol=1e-7)
-    np.testing.assert_allclose(np.asarray(lane.u_e), np.asarray(ref.u_e),
-                               rtol=0, atol=1e-7)
 
+def test_bidomain_unstructured_matches_scipy_block_solve():
+    """The same reference check on the unstructured LV ellipsoid (ELL +
+    apex-tail operators, anisotropic fiber conductivities)."""
+    mesh, M_i, M_e, _ = _lv_setup(psize_ref=1.2)
+    _bidomain_vs_reference(mesh, M_i, M_e, 1.0, atol=1e-8)
 
 @pytest.mark.parametrize("theta", [1.0, 0.5])
 def test_gs_scheme_matches_monolithic(theta):

@@ -1,7 +1,7 @@
 """Gates for the production-fit harness (benchmarks/fit_scale.py).
 
-The full-scale artifact (FIT_SCALE.json: slab dx=0.2 / LV, full-beat
-TP06, 12 Adam iterations) runs on the TPU via
+The full-scale fit (slab dx=0.2 / LV, full-beat TP06, 12 Adam
+iterations) runs on the accelerator via
 ``python -m fenicsx_beat_tpu.benchmarks.fit_scale``; these gates pin the
 machinery at CI scale:
 

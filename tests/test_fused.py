@@ -74,9 +74,9 @@ def test_fused_matches_oo_splitting(theta):
     np.testing.assert_allclose(v_fused, v_oo, rtol=1e-6, atol=2e-5)
 
 
-def test_fused_pallas_interpret_matches_plain():
-    """The pallas ODE kernel path (interpret mode on CPU) reproduces the
-    plain-jnp fused trajectory exactly."""
+def test_fused_ionic_kernel_interpret_matches_plain():
+    """The single-kernel ionic step (ops/ionic_kernel.py, Pallas
+    interpreter on the CPU) reproduces the XLA fused trajectory."""
     mesh, I_s, dx = _setup(N=8)
     common = dict(
         mesh=mesh,
@@ -86,21 +86,90 @@ def test_fused_pallas_interpret_matches_plain():
         parameters=tp06.init_parameter_values(stim_amplitude=0.0),
         v_index=tp06.state_index("V"),
         I_s=I_s,
+        theta=0.5,
     )
-    plain = FusedMonodomainSolver(use_pallas_ode=False, **common)
+    plain = FusedMonodomainSolver(ionic_kernel="xla", **common)
     plain.solve((0.0, 1.0), dt=0.05)
-    pallas = FusedMonodomainSolver(use_pallas_ode=True, **common)
-    pallas.solve((0.0, 1.0), dt=0.05)
-    np.testing.assert_allclose(np.asarray(pallas.v), np.asarray(plain.v), atol=1e-12)
+    kernel = FusedMonodomainSolver(ionic_kernel="interpret", **common)
+    assert kernel.ionic_route == "interpret"
+    kernel.solve((0.0, 1.0), dt=0.05)
+    np.testing.assert_allclose(np.asarray(kernel.states), np.asarray(plain.states), rtol=1e-10, atol=1e-10)
+    # off the GPU the default route is XLA
+    assert FusedMonodomainSolver(**common).ionic_route == "xla"
 
-def test_fused_tabulated_pallas_matches_plain():
-    """The table-driven TP06 step through the pallas v-inject kernel
-    (interpret mode on CPU) reproduces the same tabulated fun on the plain
-    jnp path exactly, and stays physically close to the exact model."""
+
+@pytest.mark.parametrize(
+    "platform, route, params_ndim, expected",
+    [
+        ("gpu", None, 1, "triton"),
+        ("cpu", None, 1, "xla"),
+        ("gpu", None, 2, "xla"),  # per-node parameters cannot be baked in
+        ("gpu", "xla", 1, "xla"),
+        ("cpu", "interpret", 1, "interpret"),
+    ],
+)
+def test_select_route(platform, route, params_ndim, expected):
+    from fenicsx_beat_tpu.ops.ionic_kernel import select_route
+
+    p = tp06.init_parameter_values()
+    params = p if params_ndim == 1 else np.tile(p[:, None], (1, 4))
+    assert select_route(tp06.generalized_rush_larsen, params, platform, route) == expected
+
+
+def test_select_route_rejects_unknown_and_unqualified():
+    from fenicsx_beat_tpu.ops.ionic_kernel import select_route
+
+    p = tp06.init_parameter_values()
+    with pytest.raises(ValueError, match="ionic_kernel"):
+        select_route(tp06.generalized_rush_larsen, p, "gpu", "triton")
+    with pytest.raises(ValueError, match="xp"):
+        select_route(lambda states, t, parameters, dt: states, p, "cpu", "interpret")
+
+
+def test_fused_route_follows_the_state_device(monkeypatch):
+    """The default route comes from the platform of the device that holds
+    the solver's state, not from JAX's default backend: a solver built
+    under ``jax.default_device(cpu)`` on a GPU host takes the XLA route."""
+    import jax
+
+    from fenicsx_beat_tpu import device
+
+    mesh, I_s, _ = _setup(N=4)
+    common = dict(
+        mesh=mesh,
+        M=0.001,
+        ode_fun=tp06.generalized_rush_larsen,
+        init_states=tp06.init_state_values(),
+        parameters=tp06.init_parameter_values(stim_amplitude=0.0),
+        v_index=tp06.state_index("V"),
+        I_s=I_s,
+    )
+    with jax.default_device(jax.devices("cpu")[0]):
+        solver = FusedMonodomainSolver(**common)
+    assert device.platform_of(solver.states) == "cpu"
+    assert solver.ionic_route == "xla"
+    seen = []
+
+    def on_gpu(x):
+        seen.append(x)
+        return "gpu"
+
+    monkeypatch.setattr(device, "platform_of", on_gpu)
+    solver = FusedMonodomainSolver(**common)
+    assert solver.ionic_route == "triton"
+    assert seen and seen[0] is solver.states
+
+
+def test_fused_tabulated_matches_exact():
+    """The table-driven TP06 step (off the main path) stays physically
+    close to the exact model on the fused path, within its audited table
+    error, and takes the XLA route (it does not follow the row-wise
+    ``xp`` convention of the ionic kernel)."""
     mesh, I_s, dx = _setup(N=8)
     dt, theta = 0.05, 1.0
     params = tp06.init_parameter_values(stim_amplitude=0.0)
     tab_fun = tp06.tabulated_rush_larsen(theta * dt, params)
+    assert max(tab_fun.table_error.values()) < 1e-2
     common = dict(
         mesh=mesh,
         M=0.001,
@@ -110,17 +179,14 @@ def test_fused_tabulated_pallas_matches_plain():
         I_s=I_s,
         theta=theta,
     )
-    plain = FusedMonodomainSolver(use_pallas_ode=False, ode_fun=tab_fun, **common)
-    plain.solve((0.0, 1.0), dt=dt)
-    pallas = FusedMonodomainSolver(use_pallas_ode=True, ode_fun=tab_fun, **common)
-    pallas.solve((0.0, 1.0), dt=dt)
-    np.testing.assert_allclose(np.asarray(pallas.v), np.asarray(plain.v), atol=1e-12)
-
-    exact = FusedMonodomainSolver(
-        use_pallas_ode=False, ode_fun=tp06.generalized_rush_larsen, **common
-    )
+    tab = FusedMonodomainSolver(ode_fun=tab_fun, **common)
+    assert tab.ionic_route == "xla"
+    with pytest.raises(ValueError, match="xp"):
+        FusedMonodomainSolver(ode_fun=tab_fun, ionic_kernel="interpret", **common)
+    tab.solve((0.0, 1.0), dt=dt)
+    exact = FusedMonodomainSolver(ode_fun=tp06.generalized_rush_larsen, **common)
     exact.solve((0.0, 1.0), dt=dt)
-    np.testing.assert_allclose(np.asarray(plain.v), np.asarray(exact.v), atol=0.5)
+    np.testing.assert_allclose(np.asarray(tab.v), np.asarray(exact.v), atol=0.5)
 
 
 def test_fused_tabulated_rejects_mismatched_dt():
@@ -168,27 +234,41 @@ def test_fused_checkpoint_resume(tmp_path):
     np.testing.assert_allclose(np.asarray(b.v), v_ref, atol=1e-12)
 
 
-def test_fused_pallas_cg_matches_generic(tmp_path):
-    """The three-kernel pallas PCG (interpret mode on CPU) reproduces the
-    generic lax.while_loop CG trajectory."""
-    mesh, I_s, dx = _setup(N=12)
-    common = dict(
+def test_fused_diffusion_matches_scipy_solve():
+    """With a reaction-free ionic model each fused step is one theta-rule
+    diffusion solve: the on-device CG trajectory matches SciPy's direct
+    solve of ``(C_m M + th dt K) v' = (C_m M - (1 - th) dt K) v``."""
+    import scipy.sparse as sp
+    import scipy.sparse.linalg as spla
+
+    from fenicsx_beat_tpu.conductivities import as_cell_tensors
+
+    mesh, _, _ = _setup(N=12)
+    V = fem.functionspace(mesh, ("P", 1))
+    n = V.ndofs
+    v0 = np.random.default_rng(3).standard_normal(n)
+    dt, th, M = 0.05, 0.5, 0.01
+    fused = FusedMonodomainSolver(
         mesh=mesh,
-        M=0.001,
-        ode_fun=tp06.generalized_rush_larsen,
-        init_states=tp06.init_state_values(),
-        parameters=tp06.init_parameter_values(stim_amplitude=0.0),
-        v_index=tp06.state_index("V"),
-        I_s=I_s,
+        M=M,
+        ode_fun=lambda states, t, parameters, dt: states,
+        init_states=v0[None, :],
+        parameters=None,
+        v_index=0,
+        theta=1.0,
+        params={"ksp_rtol": 1e-13, "ksp_atol": 1e-15},
     )
-    plain = FusedMonodomainSolver(use_pallas_ode=False, **common)
-    plain.solve((0.0, 1.5), dt=0.05)
-    fused_cg = FusedMonodomainSolver(use_pallas_ode=True, pallas_spmv_min_nodes=1, **common)
-    assert fused_cg._n_pad > fused_cg._n  # padded path engaged
-    fused_cg.solve((0.0, 1.5), dt=0.05)
-    np.testing.assert_allclose(
-        np.asarray(fused_cg.v), np.asarray(plain.v), rtol=1e-10, atol=1e-9
-    )
+    fused.solve((0.0, 10 * dt), dt=dt)
+
+    rows, cols, mv, kv, shape = fem.assemble_mass_stiffness_coo(V, as_cell_tensors(M, mesh))
+    Mm = sp.csr_matrix((mv, (rows, cols)), shape=shape)
+    K = sp.csr_matrix((kv, (rows, cols)), shape=shape)
+    A = (Mm + th * dt * K).tocsc()
+    B = Mm - (1.0 - th) * dt * K
+    v = v0.copy()
+    for _ in range(10):
+        v = spla.spsolve(A, B @ v)
+    np.testing.assert_allclose(np.asarray(fused.v), v, rtol=1e-9, atol=1e-10)
 
 
 def test_fused_surfaces_cg_non_convergence():
@@ -287,36 +367,40 @@ def test_fused_multi_marker_matches_oo():
     np.testing.assert_allclose(np.asarray(fused.v), v_oo, rtol=1e-6, atol=1e-4)
 
 
-def test_fused_multi_marker_pallas_matches_jnp():
-    """Multi-marker masks streamed into the pallas ionic kernel (interpret
-    mode on CPU) reproduce the plain jnp masked-composition path."""
-    mesh, I_s, dx = _setup(N=12)
-    params = tp06.init_parameter_values(stim_amplitude=0.0)
-    V = fem.functionspace(mesh, ("P", 1))
-    coords = V.tabulate_dof_coordinates()
-    marker_arr = np.where(coords[:, 0] < 0.5, 1, 2)
-    common = dict(
-        mesh=mesh,
-        M=0.001,
-        ode_fun={1: tp06.generalized_rush_larsen, 2: tp06.generalized_rush_larsen},
-        init_states={
-            1: tp06.init_state_values(),
-            2: tp06.init_state_values(V=-60.0),
-        },
-        parameters={1: params, 2: params},
-        v_index={1: tp06.state_index("V"), 2: tp06.state_index("V")},
-        ode_markers=marker_arr,
-        I_s=I_s,
-        theta=1.0,
+def test_multi_marker_composition_matches_per_marker_stepping():
+    """The masked multi-model composition (odesolver.make_multi_ode) that
+    the fused solver steps equals stepping each marker's nodes with its
+    own model and parameters (endo vs epi TP06 here)."""
+    import jax.numpy as jnp
+
+    from fenicsx_beat_tpu.odesolver import make_multi_ode
+
+    n = 64
+    markers = np.where(np.arange(n) % 3 == 0, 1, 2)
+    p_epi = tp06.init_parameter_values(stim_amplitude=0.0)
+    p_endo = tp06.init_parameter_values(stim_amplitude=0.0, celltype=0.0)
+    init = {1: tp06.init_state_values(), 2: tp06.init_state_values(V=-60.0)}
+    fun, states, masks, vi = make_multi_ode(
+        markers,
+        {1: tp06.generalized_rush_larsen, 2: tp06.generalized_rush_larsen},
+        init,
+        {1: p_epi, 2: p_endo},
+        {1: tp06.state_index("V"), 2: tp06.state_index("V")},
+        dtype=jnp.float64,
     )
-    plain = FusedMonodomainSolver(use_pallas_ode=False, **common)
-    plain.solve((0.0, 1.5), dt=0.05)
-    pallas = FusedMonodomainSolver(use_pallas_ode=True, **common)
-    assert pallas._use_pallas
-    pallas.solve((0.0, 1.5), dt=0.05)
-    np.testing.assert_allclose(
-        np.asarray(pallas.v), np.asarray(plain.v), rtol=1e-10, atol=1e-10
-    )
+    assert vi == 0  # the composition stores every model's voltage in row 0
+    states = jnp.asarray(states)
+    per = {m: np.tile(init[m][:, None], (1, int((markers == m).sum()))) for m in (1, 2)}
+    for k in range(20):
+        states = fun(states, 0.05 * k, jnp.asarray(masks), 0.05)
+        for m, p in ((1, p_epi), (2, p_endo)):
+            per[m] = np.asarray(tp06.generalized_rush_larsen(per[m], 0.05 * k, p, 0.05))
+    # undo the voltage-to-row-0 swap of the composition's storage layout
+    swap = np.arange(states.shape[0])
+    swap[[0, tp06.state_index("V")]] = [tp06.state_index("V"), 0]
+    out = np.asarray(states)[swap]
+    for m in (1, 2):
+        np.testing.assert_allclose(out[:, markers == m], per[m], rtol=1e-12, atol=1e-12)
 
 
 def test_merged_strang_matches_unmerged():
@@ -362,41 +446,48 @@ def test_merged_strang_matches_unmerged():
     g.solve((0.0, 1.0), dt=dt)
 
 
-def test_fused_lane_gather_unstructured_matches_plain():
-    """The paged lane-gather SpMV path (the unstructured TPU format;
-    interpret mode on CPU) reproduces the XLA ELL trajectory on the LV
-    ellipsoid to solver tolerance."""
+def test_fused_unstructured_lv_matches_oo():
+    """On the unstructured LV ellipsoid (ELL + apex tail operators) the
+    fused path reproduces the OO MonodomainSplittingSolver."""
     from fenicsx_beat_tpu.geometry import get_lv_ellipsoid_geometry
     from fenicsx_beat_tpu.mesh import meshtags
     from fenicsx_beat_tpu.models import fitzhughnagumo as fhn
+    from fenicsx_beat_tpu.ops.sparse import ELLMatrix
     from fenicsx_beat_tpu.stimulation import Stimulus, TimeWindow
     from fenicsx_beat_tpu.stimulation import dx as dx_measure
 
     geo = get_lv_ellipsoid_geometry(psize_ref=0.8)
     mesh = geo.mesh
     tags = meshtags(mesh, 3, np.arange(150, dtype=np.int32), 1)
-    common = dict(
-        mesh=mesh,
-        M=0.05,
-        ode_fun=fhn.forward_euler,
-        init_states=fhn.init_state_values(),
-        parameters=fhn.init_parameter_values(stim_amplitude=0.0),
-        v_index=fhn.state_index("v"),
-        I_s=Stimulus(
-            expr=TimeWindow(amplitude=60.0, start=0.0, duration=1.0),
-            dZ=dx_measure(mesh, subdomain_data=tags),
-            marker=1,
-        ),
+    dx = dx_measure(mesh, subdomain_data=tags)
+    I_s = Stimulus(expr=TimeWindow(amplitude=60.0, start=0.0, duration=1.0), dZ=dx, marker=1)
+    M, T, dt = 0.05, 1.0, 0.1
+    init = fhn.init_state_values()
+    params = fhn.init_parameter_values(stim_amplitude=0.0)
+    vi = fhn.state_index("v")
+
+    time = fem.Constant(0.0)
+    pde = beat.MonodomainModel(time=time, mesh=mesh, M=M, I_s=I_s, dx=dx)
+    ode = beat.odesolver.DolfinODESolver(
+        v_ode=fem.Function(fem.functionspace(mesh, ("P", 1))),
+        v_pde=pde.state,
+        fun=fhn.forward_euler,
+        init_states=init,
+        parameters=params,
+        num_states=len(init),
+        v_index=vi,
     )
-    plain = FusedMonodomainSolver(use_pallas_ode=False, **common)
-    assert not plain._lane_gather
-    plain.solve((0.0, 1.0), dt=0.1)
-    lane = FusedMonodomainSolver(
-        use_pallas_ode=True, pallas_spmv_min_nodes=1, **common
+    beat.MonodomainSplittingSolver(pde=pde, ode=ode, theta=1.0).solve((0.0, T), dt=dt)
+
+    fused = FusedMonodomainSolver(
+        mesh=mesh, M=M, ode_fun=fhn.forward_euler, init_states=init,
+        parameters=params, v_index=vi, I_s=I_s,
+        params={"ksp_rtol": 1e-13, "ksp_atol": 1e-14},
     )
-    assert lane._lane_gather
-    lane.solve((0.0, 1.0), dt=0.1)
-    n = mesh.num_vertices
-    np.testing.assert_allclose(
-        np.asarray(lane.v)[:n], np.asarray(plain.v)[:n], rtol=0, atol=1e-8
-    )
+    assert isinstance(fused._mass, ELLMatrix) and fused._mass.has_tail
+    fused.solve((0.0, T), dt=dt)
+    v_oo = np.array(pde.state.x.array)
+    assert np.ptp(v_oo) > 0.1  # the stimulus moved the field
+    np.testing.assert_allclose(np.asarray(fused.v), v_oo, rtol=1e-6, atol=1e-6)
+
+

@@ -43,38 +43,37 @@ def test_vtu_writer_produces_readable_xml(tmp_path):
     assert root.tag == "VTKFile"
 
 
-def test_checkpoint_portable_across_padding():
-    """Checkpoints must be written UNPADDED so a padded (TPU kernel
-    alignment) fused solver and an unpadded CPU solver can exchange them
-    (regression: save_state used to write the padded state and load_state
-    demanded exact padded-shape equality)."""
+def test_checkpoint_portable_across_padding(tmp_path):
+    """Checkpoints hold exactly the mesh's nodes, so a padded solver (the
+    sharded solver pads the node axis to a device multiple) and the
+    unpadded fused solver exchange them both ways."""
     import numpy as np
+    import jax
 
-    from fenicsx_beat_tpu.benchmarks.niederer import _build_solver
+    from fenicsx_beat_tpu.benchmarks.niederer import _build_solver, niederer_problem
+    from fenicsx_beat_tpu.parallel import ShardedMonodomainSolver
+    from jax.sharding import Mesh
 
-    padded = _build_solver(dx=0.5, use_pallas_ode=True)  # interpret mode pads
-    plain = _build_solver(dx=0.5, use_pallas_ode=False)
-    assert padded._n_pad > padded._n, "test needs a padded solver"
-    assert plain._n_pad == plain._n
+    plain = _build_solver(dx=0.5)
+    padded = ShardedMonodomainSolver(
+        device_mesh=Mesh(np.array(jax.devices()[:8]), ("x",)),
+        **niederer_problem(dx=0.5),
+    )
+    assert padded.part.n_pad > padded.part.n_global == plain._n
+    assert plain.states.shape[1] == plain._n
 
     padded.solve((0.0, 0.5), dt=0.05)
-    path = padded.save_state("/tmp/ckpt-pad-roundtrip", t=0.5)
-    t = plain.load_state(path)
-    assert t == 0.5
+    path = padded.save_state(tmp_path / "ckpt-pad-roundtrip", t=0.5)
+    assert plain.load_state(path) == 0.5
     np.testing.assert_allclose(
-        np.asarray(plain.states[:, : plain._n]),
-        np.asarray(padded.states[:, : padded._n]),
-        rtol=1e-6,
-        atol=1e-7,
+        np.asarray(plain.v), np.asarray(padded.v), rtol=1e-6, atol=1e-7
     )
     # and back: unpadded checkpoint into the padded solver
-    path2 = plain.save_state("/tmp/ckpt-plain-roundtrip", t=1.0)
+    plain.solve((0.5, 1.0), dt=0.05)
+    path2 = plain.save_state(tmp_path / "ckpt-plain-roundtrip", t=1.0)
     assert padded.load_state(path2) == 1.0
     np.testing.assert_allclose(
-        np.asarray(padded.states[:, : padded._n]),
-        np.asarray(plain.states[:, : plain._n]),
-        rtol=1e-6,
-        atol=1e-7,
+        np.asarray(padded.v), np.asarray(plain.v), rtol=1e-6, atol=1e-7
     )
 
 

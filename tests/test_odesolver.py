@@ -255,20 +255,18 @@ def test_make_multi_ode_mixed_models():
     )
 
 
-def test_pallas_multi_ode_block_skip_matches_composition():
-    """The block-skip multi-marker pallas kernel (interpret mode on CPU)
-    reproduces the masked composition exactly, including different state
-    counts and voltage rows per model."""
+def test_multi_ode_composition_matches_separate_models():
+    """The masked multi-marker composition steps each marker's nodes
+    exactly as its own model would, with different state counts and
+    voltage rows per model (TP06 and FHN)."""
     import jax.numpy as jnp
 
     from fenicsx_beat_tpu.models import fitzhughnagumo as fhn
     from fenicsx_beat_tpu.models import tentusscher_panfilov_2006 as tp06
     from fenicsx_beat_tpu.odesolver import make_multi_ode
-    from fenicsx_beat_tpu.ops.pallas_ode import build_pallas_multi_ode_step
 
-    n = 300  # pads to 3 lanes of 128; marker bands split mid-lane
+    n = 300
     markers = np.where(np.arange(n) < 130, 1, 2)
-
     fun = {1: tp06.generalized_rush_larsen, 2: fhn.generalized_rush_larsen}
     init = {1: tp06.init_state_values(), 2: fhn.init_state_values()}
     params = {
@@ -276,29 +274,23 @@ def test_pallas_multi_ode_block_skip_matches_composition():
         2: fhn.init_parameter_values(),
     }
     v_index = {1: tp06.state_index("V"), 2: fhn.state_index("v")}
-
     ode_fun, union, masks, v_common = make_multi_ode(markers, fun, init, params, v_index)
-    assert hasattr(ode_fun, "multi")
+    assert v_common == 0
 
-    step = build_pallas_multi_ode_step(
-        ode_fun.multi,
-        masks_np=masks,
-        num_states=union.shape[0],
-        n_nodes=n,
-        dtype=jnp.float64,
-        v_index=v_common,
-        interpret=True,
-    )
-
-    s = jnp.asarray(union)
+    got = jnp.asarray(union)
     masks_j = jnp.asarray(masks, dtype=jnp.float64)
-    dt = 0.05
-    t = 0.0
-    ref = s
-    got = s
+    sep = {m: np.tile(init[m][:, None], (1, int((markers == m).sum()))) for m in (1, 2)}
+    dt, t = 0.05, 0.0
     for _ in range(5):
-        v_ref = ref[v_common]
-        ref = ode_fun(states=ref.at[v_common].set(v_ref), t=t, parameters=masks_j, dt=dt)
-        got = step(got, got[v_common], masks_j, t, dt)
+        got = ode_fun(states=got, t=t, parameters=masks_j, dt=dt)
+        for m in (1, 2):
+            sep[m] = np.asarray(fun[m](sep[m], t, params[m], dt))
         t += dt
-    np.testing.assert_allclose(np.asarray(got), np.asarray(ref), rtol=1e-12, atol=1e-12)
+    got = np.asarray(got)
+    for m in (1, 2):
+        S_m = init[m].shape[0]
+        swap = np.arange(S_m)
+        swap[[0, v_index[m]]] = [v_index[m], 0]  # stored with v in row 0
+        np.testing.assert_allclose(
+            got[:S_m, markers == m][swap], sep[m], rtol=1e-12, atol=1e-12
+        )

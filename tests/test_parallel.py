@@ -121,6 +121,32 @@ def test_sharded_solver_matches_fused(n_devices):
     np.testing.assert_allclose(a_s, a_f, rtol=1e-8, atol=1e-8)
 
 
+def test_sharded_ionic_kernel_interpret_matches_xla():
+    """Inside shard_map the ionic step through the Pallas kernel
+    (interpreter on the CPU) reproduces the jnp model through XLA, for
+    both Strang half-steps."""
+    dmesh = _device_mesh(4)
+    common = dict(_niederer_setup(dx=1.0), theta=0.5)
+    v = {}
+    for route in ("xla", "interpret"):
+        sharded = ShardedMonodomainSolver(device_mesh=dmesh, ionic_kernel=route, **common)
+        assert sharded.ionic_route == route
+        sharded.solve((0.0, 1.0), dt=0.05)
+        v[route] = np.asarray(sharded.v)
+    np.testing.assert_allclose(v["interpret"], v["xla"], rtol=1e-10, atol=1e-10)
+    assert ShardedMonodomainSolver(device_mesh=dmesh, **common).ionic_route == "xla"
+
+
+def test_sharded_solve_compiles_one_chunk_program():
+    """Chunks after the first reuse its compiled program: the time the
+    chunk returns is replicated over the mesh, like the scalars the first
+    chunk received."""
+    sharded = ShardedMonodomainSolver(device_mesh=_device_mesh(4), **_niederer_setup(dx=1.0))
+    sharded.solve((0.0, 0.5), dt=0.05, save_freq=5)
+    sharded.solve((0.5, 1.0), dt=0.05, save_freq=5)
+    assert sharded._run_chunk_ops._cache_size() == 1
+
+
 def test_sharded_solver_activation_progresses():
     dmesh = _device_mesh(8)
     common = _niederer_setup(dx=1.0)
@@ -418,12 +444,11 @@ def test_initialize_distributed_single_process_graceful():
     initialize_distributed()  # idempotent second call
 
 
-def test_sharded_lane_gather_matches_xla():
-    """The per-device paged lane-gather local SpMV (parallel/lane.py; the
-    TPU path for unstructured sharded meshes — the XLA ELL halo gather it
-    replaces runs at ~1 GB/s on the chip) reproduces the XLA path on the
-    LV ellipsoid (interpret mode on CPU; 4 devices, FHN to keep interpret
-    runtime sane)."""
+def test_sharded_unstructured_matches_fused():
+    """On the unstructured LV ellipsoid the sharded solver (RCM
+    renumbering, per-device ELL blocks, COO apex tail, ppermute halos;
+    4 devices) reproduces the single-device fused solver."""
+    from fenicsx_beat_tpu.fused import FusedMonodomainSolver
     from fenicsx_beat_tpu.geometry import get_lv_ellipsoid_geometry
     from fenicsx_beat_tpu.models import fitzhughnagumo as fhn
     from fenicsx_beat_tpu.stimulation import TimeWindow, dx as dx_measure
@@ -446,16 +471,13 @@ def test_sharded_lane_gather_matches_xla():
         v_index=fhn.state_index("v"),
         I_s=I_s, theta=1.0,
     )
-    ref = ShardedMonodomainSolver(device_mesh=dmesh, use_lane_gather=False, **common)
-    assert ref._lane is None
-    ref.solve((0.0, 0.5), dt=0.1)
+    sharded = ShardedMonodomainSolver(
+        device_mesh=dmesh, cg_rtol=1e-12, cg_atol=1e-14, **common
+    )
+    assert sharded._perm is not None and sharded._tail is not None
+    sharded.solve((0.0, 0.5), dt=0.1)
+    fused = FusedMonodomainSolver(params={"ksp_rtol": 1e-12, "ksp_atol": 1e-14}, **common)
+    fused.solve((0.0, 0.5), dt=0.1)
 
-    lane = ShardedMonodomainSolver(device_mesh=dmesh, use_lane_gather=True, **common)
-    assert lane._lane is not None
-    assert lane._lane["meta"]["NP"] >= 1
-    lane.solve((0.0, 0.5), dt=0.1)
-
-    np.testing.assert_allclose(np.asarray(lane.v), np.asarray(ref.v),
-                               rtol=0, atol=1e-9)
-    np.testing.assert_allclose(lane.activation_times(), ref.activation_times(),
-                               atol=1e-10)
+    np.testing.assert_allclose(np.asarray(sharded.v), np.asarray(fused.v), rtol=0, atol=1e-9)
+    np.testing.assert_allclose(sharded.activation_times(), fused.activation_times(), atol=1e-10)

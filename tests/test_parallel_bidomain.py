@@ -87,6 +87,45 @@ def test_sharded_matches_fused_structured(theta):
     assert abs(float(np.asarray(sb.u_e).mean())) < 1e-10
 
 
+def test_sharded_solve_compiles_one_chunk_program():
+    """Chunks after the first reuse its compiled program: the time the
+    chunk returns is replicated over the mesh, like the scalars the first
+    chunk received."""
+    mesh, I_s = _sheet_setup(nx=8)
+    sb = ShardedBidomainSolver(
+        mesh=mesh, M_i=0.004, M_e=0.008, I_s=I_s,
+        device_mesh=_device_mesh(4), **_common(),
+    )
+    sb.solve((0.0, 0.6), dt=0.1, save_freq=2)
+    assert sb._run_chunk_ops._cache_size() == 1
+
+
+def test_sharded_ionic_kernel_interpret_matches_xla():
+    """The sharded bidomain ionic step through the Pallas kernel
+    (interpreter on the CPU) reproduces the jnp model through XLA."""
+    from fenicsx_beat_tpu.models import tentusscher_panfilov_2006 as tp06
+
+    mesh, I_s = _sheet_setup(nx=8)
+    kw = dict(
+        _common(),
+        ode_fun=tp06.generalized_rush_larsen,
+        init_states=tp06.init_state_values(),
+        parameters=tp06.init_parameter_values(stim_amplitude=0.0),
+        v_index=tp06.state_index("V"),
+    )
+    v = {}
+    for route in ("xla", "interpret"):
+        sb = ShardedBidomainSolver(
+            mesh=mesh, M_i=0.004, M_e=0.008, I_s=I_s,
+            device_mesh=_device_mesh(4), ionic_kernel=route, **kw,
+        )
+        assert sb.ionic_route == route
+        sb.solve((0.0, 0.5), dt=0.05)
+        v[route] = (np.asarray(sb.v), np.asarray(sb.u_e))
+    for a, b in zip(v["interpret"], v["xla"]):
+        np.testing.assert_allclose(a, b, rtol=1e-10, atol=1e-10)
+
+
 def test_sharded_matches_fused_unstructured_lv():
     """Unstructured LV ellipsoid: RCM + hybrid ELL/tail partition + the
     SHARDED SA-AMG u-block V-cycle reproduce the single-device solution;
@@ -170,7 +209,7 @@ def test_sharded_bidomain_validation():
 
 def test_sharded_multi_marker_matches_single_device():
     """Two-marker TP06 endo/epi split on the sharded bidomain path
-    (VERDICT r4 #7): dict-valued ode_fun composes via make_multi_ode with
+    dict-valued ode_fun composes via make_multi_ode with
     node masks sharded along the node axis, and must reproduce the
     single-device BidomainSolver with the same markers."""
     from fenicsx_beat_tpu import fem

@@ -1,7 +1,8 @@
 """Stencil (fixed-offset) SpMV: equivalence with ELL and solver integration."""
 
-import numpy as np
+import jax
 import jax.numpy as jnp
+import numpy as np
 import pytest
 
 from fenicsx_beat_tpu import fem
@@ -66,47 +67,41 @@ def test_fused_solver_uses_stencil():
     assert np.isfinite(np.asarray(solver.v)).all()
 
 
+def _stencil_csr(offsets, vals):
+    """SciPy float64 reference of a stencil operator."""
+    import scipy.sparse as sp
+
+    n = vals.shape[0]
+    rows = np.repeat(np.arange(n), len(offsets))
+    cols = (np.arange(n)[:, None] + np.asarray(offsets)[None, :]).ravel()
+    v = np.asarray(vals, dtype=np.float64).ravel()
+    keep = (cols >= 0) & (cols < n)
+    return sp.csr_matrix((v[keep], (rows[keep], cols[keep])), shape=(n, n))
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
-def test_pallas_spmv_random_offsets(seed):
-    """Interpret-mode pallas stencil SpMV vs the XLA StencilMatrix over
-    random offset sets (exercises the sublane/lane roll + carry-select
-    decomposition for arbitrary shifts)."""
-    import jax.numpy as jnp
-
-    from fenicsx_beat_tpu.ops.pallas_spmv import build_pallas_stencil_spmv
-
+def test_stencil_spmv_random_offsets_vs_scipy(seed):
+    """XLA StencilMatrix over random offset sets (arbitrary shifts, both
+    signs, rows near both ends) against SciPy."""
     rng = np.random.default_rng(seed)
     n = int(rng.integers(300, 3000))
     K = int(rng.integers(3, 12))
-    offs = np.unique(
-        np.concatenate([[0], rng.integers(-(n // 3), n // 3, K)])
-    )
+    offs = np.unique(np.concatenate([[0], rng.integers(-(n // 3), n // 3, K)]))
     vals = rng.standard_normal((n, offs.size))
     # zero out entries whose column would fall outside [0, n)
-    rows = np.arange(n)[:, None]
-    cols = rows + offs[None, :]
+    cols = np.arange(n)[:, None] + offs[None, :]
     vals[(cols < 0) | (cols >= n)] = 0.0
-
     st = StencilMatrix(offsets=tuple(int(d) for d in offs), vals=jnp.asarray(vals), shape=(n, n))
-    spmv = build_pallas_stencil_spmv(st.offsets, n, jnp.float64, interpret=True)
-    vals3 = spmv.pack_values(vals)
-    x = jnp.asarray(rng.standard_normal(n))
+    x = rng.standard_normal(n)
     np.testing.assert_allclose(
-        np.asarray(spmv(vals3, x)), np.asarray(st @ x), rtol=1e-12, atol=1e-12
+        np.asarray(st @ jnp.asarray(x)), _stencil_csr(st.offsets, vals) @ x,
+        rtol=1e-12, atol=1e-12,
     )
 
 
-def test_pallas_symmetric_spmv_fuzz():
-    """Symmetric-stream kernel (d>=0 columns only) vs dense reference over
-    random symmetric stencils — lane-only, row-carry, and slab-like offset
-    sets, with and without the fused pAp dot."""
-    import jax.numpy as jnp
-
-    from fenicsx_beat_tpu.ops.pallas_spmv import (
-        build_pallas_stencil_spmv_sym,
-        stencil_is_symmetric,
-    )
-
+def test_stencil_spmv_symmetric_fuzz():
+    """Random symmetric stencils (lane-like, row-carry and slab-like offset
+    sets): the XLA SpMV matches SciPy and the operator is symmetric."""
     rng = np.random.default_rng(7)
     for offsets, n in [
         ((-5, -1, 0, 1, 5), 900),
@@ -123,40 +118,19 @@ def test_pallas_symmetric_spmv_fuzz():
             vals[:, k] = col
             if d > 0:
                 vals[d:, offsets.index(-d)] = col[: n - d]
-        assert stencil_is_symmetric(offsets, vals)
+        ref = _stencil_csr(offsets, vals)
+        assert abs(ref - ref.T).max() == 0.0
         x = rng.standard_normal(n)
-        sym = build_pallas_stencil_spmv_sym(offsets, n, np.float64, interpret=True)
-        packed = sym.pack_values(vals)
-        y_ref = np.zeros(n)
-        for k, d in enumerate(offsets):
-            src = np.zeros(n)
-            if d >= 0:
-                src[: n - d if d else n] = x[d:]
-            else:
-                src[-d:] = x[: n + d]
-            y_ref += vals[:, k] * src
-        y = np.asarray(sym(packed, jnp.asarray(x)))
-        np.testing.assert_allclose(y, y_ref, rtol=1e-12, atol=1e-12)
-        y2, dot = sym.spmv_dot(packed, jnp.asarray(x))
-        np.testing.assert_allclose(np.asarray(y2), y_ref, rtol=1e-12, atol=1e-12)
-        np.testing.assert_allclose(float(dot), float(x @ y_ref), rtol=1e-10)
+        st = StencilMatrix(offsets=offsets, vals=jnp.asarray(vals), shape=(n, n))
+        y = np.asarray(st @ jnp.asarray(x))
+        np.testing.assert_allclose(y, ref @ x, rtol=1e-12, atol=1e-12)
+        np.testing.assert_allclose(float(x @ y), float(x @ (ref @ x)), rtol=1e-10)
 
 
-def test_streamed_spmv_matches_base():
-    """HBM-streamed windowed SpMV (for operands beyond VMEM) must be
-    bit-compatible with the VMEM-resident kernel and the dense result."""
-    import numpy as np
-    import jax.numpy as jnp
-
-    from fenicsx_beat_tpu.ops.pallas_spmv import (
-        build_pallas_stencil_spmv,
-        build_pallas_stencil_spmv_streamed,
-    )
-
+def test_stencil_spmv_slab_offsets_vs_scipy():
+    """A 40k-row operator with slab-like offsets (the Niederer pattern at
+    a small width), jitted, against SciPy."""
     rng = np.random.default_rng(11)
-    # n/block_rows chosen so the streamed kernel runs a MULTI-block grid
-    # (grid >= 4): the per-block DMA window offset arithmetic (i > 0) is
-    # exactly what differs from the VMEM-resident kernel
     n = 40_000
     offsets = (-130, -129, -128, -1, 0, 1, 128, 129, 130)
     vals = rng.normal(size=(n, len(offsets)))
@@ -164,59 +138,44 @@ def test_streamed_spmv_matches_base():
     for k, d in enumerate(offsets):
         vals[(rows + d < 0) | (rows + d >= n), k] = 0.0
     x = rng.normal(size=n)
-    y_ref = np.zeros(n)
-    for k, d in enumerate(offsets):
-        idx = rows + d
-        ok = (idx >= 0) & (idx < n)
-        y_ref[ok] += vals[ok, k] * x[idx[ok]]
-    ys = {}
-    for name, builder in (
-        ("base", build_pallas_stencil_spmv),
-        ("streamed", build_pallas_stencil_spmv_streamed),
-    ):
-        spmv = builder(offsets, n, np.float64, block_rows=64, interpret=True)
-        packed = jnp.asarray(spmv.pack_values(vals))
-        ys[name] = np.asarray(spmv(packed, jnp.asarray(x)))
-        np.testing.assert_allclose(ys[name], y_ref, rtol=1e-12, atol=1e-12)
-        y2, dot = spmv.spmv_dot(packed, jnp.asarray(x))
-        assert abs(float(dot) - float(x @ y_ref)) < 1e-8
-    np.testing.assert_array_equal(ys["base"], ys["streamed"])
+    st = StencilMatrix(offsets=offsets, vals=jnp.asarray(vals), shape=(n, n))
+    y = jax.jit(lambda A, v: A @ v)(st, jnp.asarray(x))
+    np.testing.assert_allclose(np.asarray(y), _stencil_csr(offsets, vals) @ x, rtol=1e-12, atol=1e-12)
 
 
-def test_pad_granule_rule():
-    from fenicsx_beat_tpu.ops.sparse import pad_granule
+def test_fused_solver_state_is_unpadded():
+    """The fused solver keeps exactly one column per node: no alignment
+    padding, so states, voltage and activation share the mesh's size."""
+    from fenicsx_beat_tpu.fused import FusedMonodomainSolver
+    from fenicsx_beat_tpu.models import fitzhughnagumo as fhn
 
-    # small meshes round to 1024, large (>=262144) to 65536 — the ONE
-    # rule shared by solver padding and checkpoint tolerance
-    assert pad_granule(500) == 1024
-    assert pad_granule(262143) == 1024
-    assert pad_granule(262144) == 65536
-    assert pad_granule(3_449_001) == 65536
+    mesh = meshmod.create_unit_square(None, 9, 5)
+    solver = FusedMonodomainSolver(
+        mesh=mesh, M=0.001, ode_fun=fhn.forward_euler,
+        init_states=fhn.init_state_values(),
+        parameters=fhn.init_parameter_values(stim_amplitude=0.0),
+        v_index=fhn.state_index("v"),
+    )
+    n = mesh.num_vertices
+    assert solver.states.shape == (fhn.init_state_values().shape[0], n)
+    assert solver.activation_time.shape == (n,) and solver.v.shape == (n,)
+    assert solver._mass.shape == (n, n)
 
 
-def test_pad_stencil_pair_inert_rows():
-    from fenicsx_beat_tpu.ops.sparse import pad_stencil_pair
-
+def test_stencil_diagonal_and_combine_vs_scipy():
+    """Value-level combination and the diagonal of a mass/stiffness stencil
+    pair against the same combination in SciPy."""
     mesh = meshmod.create_unit_square(None, 9, 5)
     V = fem.functionspace(mesh, ("P", 1))
     mass, stiff = fem.assemble_mass_stiffness(V, 1.0)
-    mass, stiff = ell_to_stencil(mass), ell_to_stencil(stiff)
-    n = V.ndofs
-    mp, kp, n_pad = pad_stencil_pair(mass, stiff, n)
-    assert n_pad == 1024 and mp.shape == (1024, 1024)
-    mv, kv = np.asarray(mp.vals), np.asarray(kp.vals)
-    # live rows unchanged
-    np.testing.assert_array_equal(mv[:n], np.asarray(mass.vals))
-    np.testing.assert_array_equal(kv[:n], np.asarray(stiff.vals))
-    # pad rows: zero stiffness, unit mass diagonal (Jacobi-CG stays finite)
-    k0 = mp.offsets.index(0)
-    np.testing.assert_array_equal(kv[n:], 0.0)
-    np.testing.assert_array_equal(mv[n:, k0], 1.0)
-    off_diag = np.delete(mv[n:], k0, axis=1)
-    np.testing.assert_array_equal(off_diag, 0.0)
-    # already-aligned n is a no-copy identity
-    m2, k2, np2 = pad_stencil_pair(mp, kp, n_pad)
-    assert np2 == n_pad and m2 is mp and k2 is kp
+    m_st, k_st = ell_to_stencil(mass), ell_to_stencil(stiff)
+    ref = 1.5 * _stencil_csr(m_st.offsets, np.asarray(m_st.vals)) - 0.2 * _stencil_csr(
+        k_st.offsets, np.asarray(k_st.vals)
+    )
+    A = m_st.combine(1.5, k_st, -0.2)
+    x = np.random.default_rng(5).standard_normal(V.ndofs)
+    np.testing.assert_allclose(np.asarray(A @ jnp.asarray(x)), ref @ x, rtol=1e-12, atol=1e-12)
+    np.testing.assert_allclose(np.asarray(A.diagonal()), ref.diagonal(), atol=1e-14)
 
 
 def test_assemble_mass_stiffness_auto_prefers_stencil():
@@ -240,21 +199,15 @@ def test_assemble_mass_stiffness_auto_prefers_stencil():
     np.testing.assert_allclose(np.asarray(m2 @ x2), np.asarray(m2e @ x2), atol=1e-12)
 
 
-def test_pallas_block_geometry_dtype_aware():
-    from fenicsx_beat_tpu.ops.pallas_ode import LANE, _block_geometry
+def test_ionic_kernel_block_rule():
+    """The ionic kernel takes power-of-two node blocks and models that
+    follow the row-wise ``xp`` convention."""
+    from fenicsx_beat_tpu.models import fitzhughnagumo as fhn
+    from fenicsx_beat_tpu.models import tentusscher_panfilov_2006 as tp06
+    from fenicsx_beat_tpu.ops.ionic_kernel import build_ionic_step, supports
 
-    # small problem: whole-array block regardless of dtype
-    m, Bm, grid, n_pad, pad = _block_geometry(19, 1000, np.float32, False)
-    assert Bm == m and grid == (1,) and n_pad == m * LANE and pad == n_pad - 1000
-    # at 19 states x 65536 nodes, f32 fits the 4MB whole-block budget
-    # (19*512*128*4 = 4.75MB > 4MB actually splits) — pick sizes either
-    # side of the budget to pin the dtype dependence:
-    # f32: 19 * 256 * 128 * 4 = 2.4MB <= 4MB -> whole block
-    m32, Bm32, *_ = _block_geometry(19, 256 * LANE, np.float32, False)
-    assert Bm32 == m32 == 256
-    # f64 doubles the bytes: 4.9MB > 4MB -> blocked (Bm < m)
-    m64, Bm64, *_ = _block_geometry(19, 256 * LANE, np.float64, False)
-    assert Bm64 < m64
-    # blocked_io demands kernel alignment
+    assert supports(tp06.generalized_rush_larsen)
+    assert not supports(fhn.forward_euler)
     with pytest.raises(ValueError):
-        _block_geometry(19, 1000, np.float32, True)
+        build_ionic_step(tp06.generalized_rush_larsen, 19, None, 0, block=96)
+    build_ionic_step(tp06.generalized_rush_larsen, 19, None, 0, block=128)

@@ -156,7 +156,7 @@ def test_vector_space_blocked_layout_and_eval():
 
 def test_vector_function_local_project_and_io_roundtrip(tmp_path):
     """A fiber-like vector Function survives cross-space local_project and
-    VTU/checkpoint output (VERDICT r02 item 7)."""
+    VTU/checkpoint output."""
     mesh = meshmod.create_unit_square(None, 3, 3)
     V3 = beat.utils.space_from_string("P_1", mesh, dim=3)
     f = fem.Function(V3, name="f0")
